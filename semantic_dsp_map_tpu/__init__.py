@@ -1,10 +1,10 @@
-"""semantic_dsp_map_tpu — a TPU-native (JAX/XLA/Pallas) dual-structure-particle
+"""semantic_dsp_map_tpu — a JAX (XLA + Pallas) dual-structure-particle
 semantic occupancy mapping framework.
 
-Re-designed from scratch with the capabilities of tud-amr/semantic_dsp_map
-(reference mounted at /root/reference): an instance-aware, ego-centric semantic
-occupancy map for dynamic scenes, built as pure-functional array programs over
-an HBM-resident ring-buffer voxel grid.
+Re-designed from scratch with the capabilities of tud-amr/semantic_dsp_map:
+an instance-aware, ego-centric semantic occupancy map for dynamic scenes,
+built as pure-functional array programs over a device-resident ring-buffer
+voxel grid.
 
 Key entry points:
   - ``MapConfig`` / presets: static configuration (grid shape, camera, dataset mode)

@@ -1,7 +1,7 @@
 """Checkpoint / resume for the map state.
 
 The reference has NO persistence — state is reset-only
-(SemanticDSPMap::clear, semantic_dsp_map.h:73-81).  Because the TPU-native
+(SemanticDSPMap::clear, semantic_dsp_map.h:73-81).  Because the
 map state is one pytree of dense arrays (state.MapState), checkpointing is a
 single orbax save/restore; this enables long KITTI-360 sequences to survive
 restarts (SURVEY.md section 5 "Checkpoint / resume").
@@ -42,7 +42,7 @@ def save_checkpoint(path: str, state: MapState, step: Optional[int] = None):
         ckptr = ocp.PyTreeCheckpointer()
         ckptr.save(ckpt_dir, arrays, force=True)
         meta["format"] = "orbax"
-    except Exception:
+    except ImportError:
         np.savez_compressed(os.path.join(path, "state.npz"), **arrays)
         meta["format"] = "npz"
 

@@ -1,4 +1,4 @@
-"""Static configuration for the TPU-native semantic DSP map.
+"""Static configuration for the semantic DSP map.
 
 This replaces the reference's three-tier config system
 (compile-time ``include/settings/settings.h`` macros, runtime YAML read by
@@ -9,7 +9,7 @@ All shape-bearing fields (grid exponents, slots/voxel, image size) are Python
 ints captured at trace time, so every jitted kernel specializes on them exactly
 like the reference specializes at compile time via ``#define SETTING``.
 
-Reference parity notes (file:line cites into /root/reference):
+Reference parity notes (file:line cites into the reference repository):
   - grid exponents / voxel size / camera intrinsics per dataset mode:
     include/settings/settings.h:32-124
   - BOOST half-resolution mode: include/settings/settings.h:135-144
@@ -167,8 +167,8 @@ class MapConfig:
     #: Keypoint interpretation (see KEYPOINTS_*).
     keypoint_mode: int = KEYPOINTS_SUPERPOINT
 
-    # ---- TPU-specific capacity knobs (no reference analog; these bound the
-    # compacted work buffers so shapes stay static under jit) ----
+    # ---- Capacity knobs (no reference analog; these bound the compacted
+    # work buffers so shapes stay static under jit) ----
 
     #: Max visible (projected, unoccluded) particles processed per frame.
     max_visible_particles: int = 1 << 20
@@ -204,18 +204,19 @@ class MapConfig:
     #: one frame — see ops/phd.py docstring).
     phd_pixel_table_slots: int = 12
 
-    #: Sharded-step skew allowance: per-device working sets and all_to_all
-    #: route buckets are sized at ``headroom_eff/D`` of the single-chip
-    #: volume, where the margin scales with the relative load variance of a
-    #: slab: ``headroom_eff = 1 + (headroom - 1) * (1 - 1/D)``
-    #: (parallel/shard_step.py).  A D=2 half-grid slab averages over 4x the
-    #: cells of a D=8 slab, so its load skew is proportionally smaller and
-    #: needs less margin; at D=1 there is no routing and no margin.
-    #: Weak-scaling efficiency >= 80% requires per-device compiled work
-    #: <= ~1.25x the uniform 1/D share (compiled work scales with the static
-    #: caps, not the live counts); skew beyond the margin is deferred/dropped
-    #: for one frame and counted in the overflow diagnostics.
-    shard_route_headroom: float = 1.2
+    #: Sharded-step capacity model (parallel/shard_step.shard_caps).  The
+    #: grid is split into z-slabs and a camera looks along its own axis, so
+    #: one slab can hold the whole frustum: a forward-looking camera sends
+    #: most of a frame's points to one or two slabs.  ``None`` (the
+    #: default) gives every device the single-chip working sets and every
+    #: (src, dst) route bucket its source's whole volume, so the sharded
+    #: step drops nothing that the single-chip step keeps.  A float
+    #: ``headroom`` instead sizes them at ``headroom_eff/D`` of that volume,
+    #: ``headroom_eff = 1 + (headroom - 1) * (1 - 1/D)``: per-device work
+    #: shrinks with the mesh, but only a scene that spreads evenly over the
+    #: slabs fits, and the excess is dropped for one frame and counted in
+    #: the overflow diagnostics.
+    shard_route_headroom: Optional[float] = None
 
     #: Minimum sharded route-bucket capacity (entries per (src, dst) pair).
     #: Small grids take the full route volume up to this floor so tests can
@@ -225,26 +226,11 @@ class MapConfig:
     #: pressure.
     shard_route_floor: int = 1024
 
-    #: Run the PHD stencil passes as fused Pallas kernels when the default
-    #: backend is TPU (ops/phd_pallas.py).  The XLA stencil is the fallback
-    #: (and the oracle the kernels are tested against).
-    use_pallas_phd: bool = True
-
-    #: Run the occupancy render reduction as one fused Pallas kernel when
-    #: the default backend is TPU (ops/render_pallas.py; 232 -> 28 ms at
-    #: VKITTI2 scale).  The XLA reduction in ops/render.py is the fallback
-    #: (and the oracle the kernel is tested against).
-    use_pallas_render: bool = True
-
-    #: Run observe's dense candidate pass as a Pallas kernel on TPU
-    #: (ops/observe_pallas.py; ~32 -> ~4 ms at VKITTI2 scale).
-    use_pallas_observe: bool = True
-
     #: Max per-frame newborn candidates actually considered is
     #: H*W*nb_ptc_num_per_point (dense, no cap needed); this caps the number
     #: of *moving-object* particles gathered for rigid moves per frame.
-    #: Kept modest: the per-candidate compaction gathers run at TPU scalar
-    #: rate, and a frame rarely moves more than a few cars' particles.
+    #: Kept modest: the per-candidate compaction gathers are element
+    #: gathers, and a frame rarely moves more than a few cars' particles.
     max_moving_particles: int = 1 << 16
 
     #: Object table capacity (the reference uses unbounded hash maps over
@@ -402,25 +388,22 @@ def virtual_kitti2_config(**overrides) -> MapConfig:
         depth_range_min=0.3, depth_range_max=30.0,
         movement_mode=MOVEMENT_BAYESIAN,
         keypoint_mode=KEYPOINTS_SUPERPOINT,
-        # Right-sized work buffers (round-5 probe on the 20-frame warmed
-        # bench scene: 1944 active blocks, 912 birth-target blocks, 50
-        # movable blocks, 490k compact entries; every element gather/scatter
-        # runs at ~6-11 ns/element and sort cost is linear in the working
-        # set, so oversizing costs real milliseconds — the r5 cut of the
-        # observe sort from 1.83M to 0.92M rows alone saved ~7 ms/frame).
-        # Overflow is never silent (StepDiagnostics.*_overflow); the hostile
-        # bench scene (bench.py clip1-shaped workload) validates headroom.
-        # 2048 overflowed by 33 blocks once the bench scene grew past ~23
-        # frames (the ego keeps driving into fresh ground), so the active
-        # cap carries ~25% headroom over that peak.
+        # Right-sized work buffers (counts on the 20-frame warmed bench
+        # scene: 1944 active blocks, 912 birth-target blocks, 50 movable
+        # blocks, 490k compact entries).  Element gathers/scatters and the
+        # observe sort scale with the working set, so oversizing costs
+        # time.  Overflow is never silent (StepDiagnostics.*_overflow); the
+        # hostile bench scene (bench.py clip1-shaped workload) validates
+        # headroom.  2048 overflowed by 33 blocks once the bench scene grew
+        # past ~23 frames (the ego keeps driving into fresh ground), so the
+        # active cap carries ~25% headroom over that peak.
         max_active_blocks=2560,
         max_table_entries=1 << 19,
         max_birth_blocks=1536,
         max_moving_blocks=128,
-        # With the validity-filtered corner pass the steady-state working
-        # set is newly-wrapped + still-occluded voxels only; the static-cap
-        # depth gather at the old 4096 cost 15 ms/frame (round-5 trace).
-        corner_gather_blocks=2048,
+        # corner_gather_blocks stays at the default 4096: on an empty map
+        # the first frame's whole frustum needs the empty-voxel pass (2172
+        # blocks in the bench scene; 2048 dropped 124 of them).
     )
     base.update(overrides)
     return MapConfig(**base)
@@ -439,11 +422,10 @@ def zed2_config(**overrides) -> MapConfig:
         boost_mode=True,
         movement_mode=MOVEMENT_BAYESIAN,
         keypoint_mode=KEYPOINTS_BBOX3D,
-        # Right-sized work buffers for the 524k-voxel grid: every element
-        # gather/scatter runs at ~6-11 ns/element (PROFILE_r02.md), so an
-        # oversized compact-entry cap costs real milliseconds, and the
+        # Right-sized work buffers for the 524k-voxel grid: element
+        # gathers/scatters scale with the compact-entry cap, and the
         # default 8192-block cap would gather the ENTIRE 4096-block grid
-        # every frame (round-4 probe: 386 active blocks on the bench scene).
+        # every frame (386 active blocks on the bench scene).
         # Overflow is never silent (StepDiagnostics.*_overflow).
         max_table_entries=1 << 18,
         max_active_blocks=1024,

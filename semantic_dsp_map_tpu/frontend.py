@@ -226,11 +226,11 @@ def build_frame_input(
 # Packed single-buffer transfer path
 # ---------------------------------------------------------------------------
 #
-# Host -> device transfers on this platform pay ~tens of ms PER ARRAY plus
-# low bandwidth, so the 14-leaf FrameInput costs ~180 ms/frame while the
-# mapping step itself costs ~75 ms (round-3 measurements).  The production
-# path therefore ships ONE contiguous int32 buffer per frame and rebuilds
-# the dense lookup tables on device (ops in map.unpack_frame).
+# Every host -> device transfer pays a fixed latency, and the 14-leaf
+# FrameInput would pay it 14 times per frame (plus 1.8 MB of dense lookup
+# tables).  The production path therefore ships ONE contiguous int32 buffer
+# per frame and rebuilds the dense lookup tables on device (ops in
+# map.unpack_frame).
 #
 # Word layout (all 4-byte words; f32 values bitcast):
 #   [0:3]   cam_pos, [3:7] cam_quat, [7] time

@@ -1,6 +1,6 @@
 """The map engine: SemanticDSPMap.
 
-TPU-native re-design of the reference engine (include/semantic_dsp_map.h:21).
+Array-program re-design of the reference engine (include/semantic_dsp_map.h:21).
 One frame is one jitted pure function over the :class:`MapState` pytree,
 mirroring the reference's frame kernel ``update()``
 (semantic_dsp_map.h:170-251) stage for stage:
@@ -67,7 +67,7 @@ from .state import (
 
 class StepDiagnostics(NamedTuple):
     """Per-frame counters.  The *_overflow fields expose every static
-    capacity cap (VERDICT r1 'silent truncation' fix): nonzero means work was
+    capacity cap: nonzero means work was
     deferred/dropped that frame and the corresponding config knob is too
     small for the scene."""
 
@@ -126,22 +126,10 @@ def _move_and_cleanup(
     # id — a tiny subset of the state — so the object-id comparisons run on
     # a block working set, not the full [V, K] domain (a dense [V, K, 8]
     # broadcast cost ~160 ms/frame at VKITTI2 scale, round-3 bisection).
-    from .ops.observe_pallas import front_pallas_supported, movable_voxels
-
-    if (
-        cfg.use_pallas_observe
-        and jax.default_backend() == "tpu"
-        and front_pallas_supported(cfg)
-    ):
-        movable_vox = movable_voxels(cfg, flat, scroll, max_movable) != 0
-        block_mask = jnp.any(movable_vox.reshape(nb, bv), axis=1)
-    else:
-        alive = codecs.particle_alive(
-            particles.status, particles.stamp, vox_axis
-        )
-        track = particles.track
-        movable_p = alive & (track >= 0) & (track <= max_movable)
-        block_mask = mask_to_block_mask(movable_p, bv)
+    alive = codecs.particle_alive(particles.status, particles.stamp, vox_axis)
+    track = particles.track
+    movable_p = alive & (track >= 0) & (track <= max_movable)
+    block_mask = mask_to_block_mask(movable_p, bv)
 
     blocks = select_blocks(block_mask, A)
     rv = row_valid(blocks)
@@ -184,11 +172,9 @@ def _move_and_cleanup(
     bmove = bmovable & moving_mask & ~floating
 
     # NOTE: this always runs, even when no object is moving.  A lax.cond
-    # around it (rounds 2-4) forced XLA to copy the ENTIRE particle state
-    # through the conditional every frame — 13.3 ms/frame at VKITTI2 scale
-    # (round-5 trace) — while the unconditional working-set math on ~50
-    # movable blocks costs ~3 ms.  Compiler cost model beats intuition:
-    # "skip when static" was the expensive path.
+    # around it makes XLA copy the ENTIRE particle state through the
+    # conditional every frame, while the unconditional math runs on the
+    # small movable-block working set.
     if True:
         flat_p = flat
         bpx, bpy, bpz = g(flat_p.px), g(flat_p.py), g(flat_p.pz)
@@ -249,8 +235,7 @@ def unpack_frame(cfg: MapConfig, static_table: np.ndarray, buf) -> FrameInput:
 
     Rebuilds the dense track->label and bbox-gate tables ON DEVICE from the
     per-instance arrays, so they never ride the host->device link (the dense
-    tables alone were 1.8 MB/frame; the link runs at ~tens of MB/s with
-    ~25 ms/array latency on this platform)."""
+    tables alone are 1.8 MB/frame)."""
     H, W = cfg.height, cfg.width
     HW = H * W
     I, Kp = cfg.max_instances_per_frame, cfg.max_keypoints

@@ -41,6 +41,7 @@ from .config import (
     MOVEMENT_NEVER,
 )
 from .state import ObjectTable
+from .ops.geometry import HIGHEST, mm
 from .ops.transforms import ransac_transform
 
 #: Window entries older than this many steps age out (object_layer.h:233).
@@ -146,7 +147,7 @@ def _window_push_and_estimate(
     centroid = win_ref + jnp.array([1.0 / 3.0, 1.0 / 3.0, 0.0], jnp.float32)
     R = win_t[..., :3, :3]
     t = win_t[..., :3, 3]
-    disp = jnp.einsum("owij,owj->owi", R, centroid) - centroid + t
+    disp = jnp.einsum("owij,owj->owi", R, centroid, precision=HIGHEST) - centroid + t
     dt_safe = jnp.where(win_dt == 0, 1e-9, win_dt)
     per_entry_v = disp / dt_safe[..., None]
     vsum = jnp.sum(jnp.where(entry_valid[..., None], per_entry_v, 0.0), axis=1)
@@ -313,7 +314,7 @@ def object_level_update(
         dt_window = jnp.full(I, DEFAULT_TIME_INTERVAL, jnp.float32)
 
     # ---------------- updateObject (object_layer.h:470-539) ------------
-    disp = jnp.einsum("iab,ib->ia", T2[:, :3, :3], ref_pt) + T2[:, :3, 3] - ref_pt
+    disp = jnp.einsum("iab,ib->ia", T2[:, :3, :3], ref_pt, precision=HIGHEST) + T2[:, :3, 3] - ref_pt
     disp_norm = jnp.linalg.norm(disp, axis=-1)
     if cfg.movement_mode == MOVEMENT_NEVER:
         moving_now = jnp.zeros(I, bool)
@@ -408,7 +409,7 @@ def object_level_update(
 
 def _point_out_of_fov(cfg: MapConfig, r_cw, t_cw, pts, margin: int):
     """isPointOutOfFOV (semantic_dsp_map.h:1421-1442)."""
-    cam = pts @ r_cw.T + t_cw
+    cam = mm(pts, r_cw.T) + t_cw
     z = cam[..., 2]
     behind = z <= 0
     zs = jnp.where(z == 0, 1e-9, z)

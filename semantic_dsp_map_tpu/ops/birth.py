@@ -3,7 +3,7 @@
 The reference inserts newborn particles point-by-point into the first vacant
 slot of the target voxel, resampling a voxel (at most once per frame) when an
 insertion finds it full (semantic_dsp_map.h:1148-1230, 1448-1519;
-operations.h:782-803).  That retry loop is inherently serial; the TPU-native
+operations.h:782-803).  That retry loop is inherently serial; the array
 reformulation is:
 
   1. resample every voxel that is targeted by at least one birth candidate
@@ -14,7 +14,7 @@ reformulation is:
      place the top (vacancy) candidates of each voxel into its vacant slots
      in first-vacant order — exactly the slots the serial loop would fill.
 
-Implementation shape (PROFILE_r02.md cost model): one multi-operand sort of
+Implementation shape (ops/blocks.py cost model): one multi-operand sort of
 the candidates by (target voxel, priority) — sorts are cheap, full-state
 compaction and element gathers are not — then per-element scatters into a
 *block-compacted staging buffer* (the active target blocks only), a dense
@@ -250,7 +250,7 @@ def _insert_core(
     dest = jnp.where(
         dest_ok,
         block_rank * spb + (sv & (bv - 1)) * K + rank,
-        A * spb + iota_n,  # unique out-of-range pads (TPU scatter UB otherwise)
+        A * spb + iota_n,  # unique out-of-range pads (duplicates are UB)
     )
 
     def stage(fill, vals, dtype):

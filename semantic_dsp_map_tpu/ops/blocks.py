@@ -1,18 +1,18 @@
-"""Voxel-block working sets: the TPU-native sparsity machinery.
+"""Voxel-block working sets: the array-program sparsity machinery.
 
 The reference avoids touching its 58.7M particle slots per frame with a
 CPU-friendly vertex BFS over frustum voxels (operations.h:1297-1457).  The
-TPU-native equivalent must avoid three primitives that run at scalar rate on
-the chip (measured on v5e, see PROFILE_r02.md):
+array equivalent avoids the primitives whose cost scales with the whole
+state rather than with the work:
 
-  - ``jnp.nonzero`` over a [V, K] domain   (~480 ms at 58.7M)
-  - per-element gathers/scatters on big domains (~6-23 ns/element)
+  - ``jnp.nonzero`` over a [V, K] domain (a full compaction)
+  - per-element gathers/scatters on big domains
 
-while exploiting the ones that are fast:
+while exploiting the ones that stream at memory bandwidth:
 
-  - dense elementwise/reduce passes        (~2.3 ms per 58.7M f32)
-  - whole-row gathers/scatters             (~memory bandwidth)
-  - multi-operand ``lax.sort``             (~6 ms for 4M rows x 8 payloads)
+  - dense elementwise/reduce passes
+  - whole-row gathers/scatters
+  - multi-operand ``lax.sort`` over a small working set
 
 The resulting pattern, used by visibility/PHD, birth, and object moves:
 
@@ -75,7 +75,7 @@ def select_blocks(block_mask: jax.Array, capacity: int) -> ActiveBlocks:
     idx = jax.lax.broadcasted_iota(jnp.int32, (nb, 1), 0).squeeze(-1)
     # Pad keys are nb+idx, NOT a shared sentinel: scatters with
     # unique_indices=True and duplicated (dropped) pad indices are undefined
-    # behavior on TPU (observed writing a stray copy of an update row).
+    # behavior (it has been seen to write a stray copy of an update row).
     key = jnp.where(block_mask, idx, nb + idx)
     order = jnp.sort(key)  # actives (ascending) first, then unique pads
     ids = order[:capacity]
@@ -163,14 +163,10 @@ def gather_rows_flat(field: jax.Array, blocks: ActiveBlocks, row_len: int) -> ja
     """Row-gather from the FLAT storage array ([V*K] or [V]) with an
     explicit row length.
 
-    Implementation note (round-5 measurement): the "obvious" sliced-gather
-    form (vmap of dynamic_slice / lax.gather with a 448-wide window, no
-    full-array reshape) HALVED the frame rate on v5e — XLA TPU lowers
-    dynamic-start sliced gathers far worse than a full [NB, row_len]
-    relayout followed by a row index.  The reshape does materialize the
-    whole state per field (~0.77 ms at VKITTI2 scale), but XLA shares it
-    across consumers and the total is the cheaper of the two by 2x
-    end-to-end.  Padding ids read a clamped row (callers mask by
+    Implemented as a [NB, row_len] reshape followed by a row index; the
+    alternative is a sliced gather (vmap of dynamic_slice) with a
+    row_len-wide window.  Which lowers faster on the GPU has not been
+    measured.  Padding ids read a clamped row (callers mask by
     :func:`row_valid`).
     """
     nbk = field.shape[0] // row_len

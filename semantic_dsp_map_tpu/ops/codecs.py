@@ -1,6 +1,6 @@
 """Index codecs and ego-centric ring-buffer scroll.
 
-TPU-native reformulation of the reference's ring-buffer index machinery
+Array reformulation of the reference's ring-buffer index machinery
 (include/mc_ring/operations.h).  The grid is a fixed torus; the ego recenter
 is pure index arithmetic — per-axis offsets plus lazy invalidation stamps —
 and never moves particle data (operations.h:68-96, 1111-1191).
@@ -128,7 +128,7 @@ def axis_stamps_per_voxel(cfg: MapConfig, scroll: ScrollState):
 
     Because the flat voxel index is (((zi << Ny_n) | yi) << Nx_n) | xi, the
     per-axis lookup is a pure broadcast over the [nz, ny, nx] view — no
-    gather (TPU gathers run at ~10 ns/element; a broadcast is free).
+    gather.
     """
     sx = scroll.axis_stamp_x[None, None, :]
     sy = scroll.axis_stamp_y[None, :, None]

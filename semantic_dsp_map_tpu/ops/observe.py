@@ -3,10 +3,10 @@
 This is the production implementation of the reference's weight-update phase
 (semantic_dsp_map.h:742-764): updateVisibleParitlcesWithBFS
 (operations.h:1297-1457) followed by updateParticles
-(semantic_dsp_map.h:960-1121), re-designed around the TPU cost model measured
-in PROFILE_r02.md:
+(semantic_dsp_map.h:960-1121), re-designed around the cost model of
+ops/blocks.py:
 
-  - no full-state compaction (jnp.nonzero at [V, K] costs ~0.5 s on a v5e);
+  - no full-state compaction (no jnp.nonzero over [V, K]);
   - active voxel *blocks* are row-gathered into a dense working set
     (ops/blocks.py), where all per-particle math is dense;
   - one multi-operand sort by (pixel, camera depth) produces the compact
@@ -100,26 +100,13 @@ def observe_and_update(
 
     # ---- dense [V, K] pass: who can project into the image ----
     vox_axis = codecs.axis_stamps_per_voxel(cfg, scroll)
-    from .observe_pallas import front_candidates, front_pallas_supported
-
-    if (
-        cfg.use_pallas_observe
-        and jax.default_backend() == "tpu"
-        and front_pallas_supported(cfg)
-    ):
-        ha_u8, hc_u8 = front_candidates(cfg, flat, scroll, r_cw, t_cw)
-        has_alive = ha_u8 != 0
-        block_mask = jnp.any(hc_u8.reshape(nb, bv) != 0, axis=1)
-    else:
-        alive = codecs.particle_alive(
-            particles.status, particles.stamp, vox_axis
-        )
-        _, _, _, proj_ok = project_to_image_xyz(
-            cfg, r_cw, t_cw, particles.px, particles.py, particles.pz
-        )
-        cand = proj_ok & alive
-        has_alive = jnp.any(alive, axis=1)
-        block_mask = mask_to_block_mask(cand, bv)
+    alive = codecs.particle_alive(particles.status, particles.stamp, vox_axis)
+    _, _, _, proj_ok = project_to_image_xyz(
+        cfg, r_cw, t_cw, particles.px, particles.py, particles.pz
+    )
+    cand = proj_ok & alive
+    has_alive = jnp.any(alive, axis=1)
+    block_mask = mask_to_block_mask(cand, bv)
 
     # ---- active-block working set ----
     blocks = select_blocks(block_mask, A)
@@ -194,9 +181,8 @@ def observe_and_update(
     ck_kappa, new_w_t, new_f_t = stencil_passes(cfg, params, table, cloud)
 
     dest = jnp.where(keep, jnp.minimum(vrank, S - 1) * HW + pix_s, 0)
-    # ONE row-gather for both result planes: two separate 512k-element
-    # gathers cost 14.8 ms on v5e, the stacked [S*H*W, 2] row gather 5.8 ms
-    # (round-5 probe); forget counts (<= 255) are exact in f32.
+    # ONE row-gather for both result planes instead of two element gathers;
+    # forget counts (<= 255) are exact in f32.
     res_t = jnp.stack(
         [new_w_t.reshape(-1), new_f_t.reshape(-1).astype(jnp.float32)], axis=-1
     )
@@ -289,10 +275,8 @@ def refresh_empty_voxel_stamps(
     The reference re-stamps every visited empty voxel every frame, but the
     stamp VALUE is only ever consumed through the validity test — skipping
     the refresh is render-equivalent and shrinks the working set from "the
-    whole observed frustum" to "newly wrapped-in or still-occluded voxels"
-    (the static-cap depth gather alone cost 15 ms/frame at VKITTI2 scale,
-    round-5 trace).  The scalar oracle (tests/oracle_full.py) mirrors the
-    same rule.
+    whole observed frustum" to "newly wrapped-in or still-occluded voxels".
+    The scalar oracle (tests/oracle_full.py) mirrors the same rule.
 
     ``vox_base`` offsets local voxel ids to global ones (voxel-slab sharding,
     parallel/shard_step.py); sizes derive from ``voxel_stamp``.

@@ -2,7 +2,7 @@
 
 Reimplements SemanticDSPMap::updateParticles (semantic_dsp_map.h:960-1121).
 
-TPU-native formulation: the reference's per-pixel "pyramid" particle lists
+Accelerator formulation: the reference's per-pixel "pyramid" particle lists
 (buffer.h:89-93) become a dense per-pixel particle table ``[H, W, S]``
 (S = slots per pixel) holding the *visible* particles, built once per frame
 from a pixel-sorted compact entry array (see ops/observe.py for how entries
@@ -73,8 +73,9 @@ _COEF3 = GAUSSIAN_PDF_COEF ** 3
 class PixelTable(NamedTuple):
     """Dense per-pixel particle table, all [S, H, W].
 
-    The slot dimension leads so the image dims are minor-most — W rides the
-    128-lane axis of the TPU tile instead of the (tiny) slot count.
+    The slot dimension leads so the image dims are minor-most: each slot
+    plane is a contiguous image, and a shifted window of it is a strided
+    2-D tile.
     ``meta`` packs (track << 8) | forget; -1 marks an empty slot.
     """
 
@@ -117,7 +118,7 @@ def table_from_entries(
     n = H * W * S
     iota_c = jax.lax.broadcasted_iota(jnp.int32, (pix.shape[0], 1), 0).squeeze(-1)
     # Unique out-of-range pads: duplicate dropped indices under
-    # unique_indices=True are UB on TPU.
+    # unique_indices=True are undefined behaviour.
     dest = jnp.where(keep, jnp.minimum(rank, S - 1) * (H * W) + pix, n + iota_c)
 
     def scat(fill, vals, dtype):
@@ -284,12 +285,12 @@ def stencil_pass_b(
 
 
 # ---------------------------------------------------------------------------
-# Backend dispatch: fused Pallas kernels on TPU, XLA stencils elsewhere
+# Backend dispatch: Pallas kernels on the GPU, XLA stencils elsewhere
 # ---------------------------------------------------------------------------
 
 
-def _use_pallas_phd(cfg: MapConfig) -> bool:
-    return cfg.use_pallas_phd and jax.default_backend() == "tpu"
+def _use_pallas_phd() -> bool:
+    return jax.default_backend() == "gpu"
 
 
 def stencil_pass_a_any(
@@ -298,30 +299,11 @@ def stencil_pass_a_any(
     """Pass A with backend dispatch: ck_kappa f32[H, W].  Split from
     :func:`stencil_passes` so the sharded path can exchange the ck halo rows
     between the passes (parallel/shard_step.py)."""
-    if not _use_pallas_phd(cfg):
-        return stencil_pass_a(cfg, params, t, cloud)
+    if _use_pallas_phd():
+        from .phd_pallas import pass_a
 
-    from .phd_pallas import pass_a_pallas
-
-    independent = params.if_use_independent_filter
-    occupied = t.meta >= 0
-    track_t = t.meta >> 8
-    if independent:
-        weff = jnp.where(occupied, t.weight, 0.0)
-    else:
-        ff = forgetting_factor(
-            t.meta & 0xFF, params.forgetting_rate, params.max_forget_count
-        )
-        weff = jnp.where(occupied, t.weight * ff, 0.0)
-
-    inv_sigma = 1.0 / jnp.maximum(cloud.sigma, 1e-6)
-    ck_raw = pass_a_pallas(
-        cfg, params, t.px, t.py, t.pz, weff, track_t,
-        cloud.pos[..., 0], cloud.pos[..., 1], cloud.pos[..., 2],
-        inv_sigma, cloud.track,
-    )
-    ck = jnp.where(cloud.valid, ck_raw, 0.0)
-    return ck * params.detection_probability + params.noise_number
+        return pass_a(cfg, params, t, cloud)
+    return stencil_pass_a(cfg, params, t, cloud)
 
 
 def stencil_pass_b_any(
@@ -332,43 +314,11 @@ def stencil_pass_b_any(
     ck_kappa: jax.Array,
 ):
     """Pass B with backend dispatch: (new_weight, new_forget) [S, H, W]."""
-    if not _use_pallas_phd(cfg):
-        return stencil_pass_b(cfg, params, t, cloud, ck_kappa)
+    if _use_pallas_phd():
+        from .phd_pallas import pass_b
 
-    from .phd_pallas import pass_b_pallas
-
-    independent = params.if_use_independent_filter
-    occupied = t.meta >= 0
-    track_t = t.meta >> 8
-    forget_t = t.meta & 0xFF
-    if independent:
-        ff_eff = occupied.astype(jnp.float32)
-    else:
-        ff = forgetting_factor(
-            forget_t, params.forgetting_rate, params.max_forget_count
-        )
-        ff_eff = jnp.where(occupied, ff, 0.0)
-
-    inv_sigma = 1.0 / jnp.maximum(cloud.sigma, 1e-6)
-    trk_eff = jnp.where(occupied, track_t, -2)
-    acc, right_f = pass_b_pallas(
-        cfg, params, t.px, t.py, t.pz, trk_eff, ff_eff, inv_sigma,
-        cloud.pos[..., 0], cloud.pos[..., 1], cloud.pos[..., 2],
-        cloud.valid, cloud.track, ck_kappa,
-    )
-    new_weight = t.weight * (
-        acc * params.detection_probability + 1.0 - params.detection_probability
-    )
-    new_weight = jnp.where(occupied, new_weight, t.weight)
-    if independent:
-        new_forget = forget_t
-    else:
-        new_forget = jnp.where(
-            right_f > 0.0,
-            0,
-            jnp.where(forget_t < FORGET_COUNT_INCREMENT_CAP, forget_t + 1, forget_t),
-        )
-    return new_weight, new_forget
+        return pass_b(cfg, params, t, cloud, ck_kappa)
+    return stencil_pass_b(cfg, params, t, cloud, ck_kappa)
 
 
 def stencil_passes(

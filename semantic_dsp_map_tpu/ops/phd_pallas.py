@@ -1,65 +1,52 @@
-"""Pallas TPU kernels for the PHD stencil passes (hot loop #3).
+"""Pallas kernels (Triton route) for the PHD stencil passes (hot loop #3).
 
-The XLA formulation in ops/phd.py re-streams the [S, H, W] particle table
-(pass A) / observation grids (pass B) from HBM once per neighborhood offset —
-(2R+1)^2 = 49 (ZED2) or 121 (VKITTI2) full passes per frame.  These kernels
-hold one (TH, TW) output tile's inputs (plus the R-pixel halo) in VMEM and
-run every offset from there, cutting HBM traffic by ~the offset count and
-turning the stencil compute-bound.
+The XLA stencils in ops/phd.py run one loop iteration per neighbourhood
+offset, and each iteration streams the whole [S, H, W] particle table (pass A)
+or carry (pass B) through device memory: (2R+1)^2 = 49 (ZED2) or 121
+(VKITTI2) full passes per frame, over a table larger than the L2 cache.
+These kernels give each program one power-of-two output tile and run the
+offset loop inside it: the shifted windows of neighbouring offsets overlap,
+so after the first offset they are served from L1/L2 and device memory sees
+each input about once.
 
-Layout: all per-slot planes are stacked on a leading "plane" axis so each
-tile is ONE contiguous-ish DMA: pass A tables are [5*S, Hp, Wp]
-(px, py, pz, w_eff, track-as-f32), pass B observation grids are [6, Hp, Wp]
-(ox, oy, oz, valid, track, ck_kappa).  Track ids (< 65536) are exact in f32.
+Layout: inputs are halo-padded by R on each side (plus whatever a liveness
+window needs past the last tile) and held in ``pl.ANY`` memory; the kernel
+reads each shifted [TH, TW] window with :func:`triton.load`.
 
-Slot-plane skipping (round 5): the pixel table is front-filled and only
-~1-9 % occupied at VKITTI2 scale (PROFILE_r04.md), so most slot planes of
-most tiles are entirely empty and their (2R+1)^2-offset loops multiply
-zeros.  Both kernels therefore process slots in groups of ``_GS`` planes and
-predicate each group's whole offset loop on a per-tile liveness reduction:
+  - Pass A (per-pixel normalizer ck) loops over the S slot planes inside the
+    program, because ck sums over them.  A slot plane is skipped when its
+    effective weight is zero over the tile's halo-included window: every
+    skipped contribution is ``w_eff * gk`` with ``w_eff == 0``, so the skip
+    is lossless.
+  - Pass B (per-entry accumulation) puts the slot plane in the grid: one
+    program per (slot, tile).  A program whose tile holds no occupied slot
+    (track sentinel -2) writes zeros.  Occupancy, not the forgetting factor,
+    is the test: a fully forgotten particle (ff == 0) adds nothing to ``acc``
+    but must still compute ``right`` so that a new same-track observation
+    can revive it (semantic_dsp_map.h:1091-1096).
 
-  - pass A skips a group iff every w_eff in the group's (halo-included) tile
-    is zero — exactly lossless, every skipped contribution is ``w_eff * gk``;
-  - pass B skips a group iff every slot in the group's tile is EMPTY
-    (track sentinel -2).  Occupancy, not ``ff_eff``, is the test: a fully
-    forgotten particle (ff == 0) contributes nothing to ``acc`` but must
-    still compute ``right`` so a new same-track observation can revive it
-    (semantic_dsp_map.h:1091-1096).
+The table is front-filled and sparsely occupied at map scale, so most slot
+planes of most tiles are empty and the skip removes most of the work.
 
-The skip changes only the f32 accumulation order (group-major instead of
-slot-major), bounded well inside the 2e-5 rtol the equality tests assert.
+Inner-loop arithmetic (the offset loops are the frame's arithmetic budget):
 
-Inner-loop diet (round 5, trace-driven): the offset loops are the frame's
-FLOP budget (121 offsets x S slots x every pixel), so every op removed there
-is ~0.5 ms/frame at VKITTI2 scale:
+  - the per-axis 9.9-sigma clip of the XLA oracle is dropped: whenever any
+    |z| > 9.9 the fused exp(-0.5 * s2) <= e^-49, far below the additive
+    clutter term kappa, and it cannot flip pass B's "rightly updated" test,
+    whose threshold is 0.1;
+  - COEF^3 and (pass B) the forgetting factor are folded into per-entry
+    planes outside the offset loop;
+  - pass B multiplies by a per-pixel reciprocal of ck_kappa, which also
+    carries the observation-valid mask (0 at invalid pixels), and invalid
+    pixels carry track -1, which equals neither a real track nor the empty
+    sentinel, so no separate validity plane is loaded.
 
-  - the per-axis 10-sigma clip is GONE: whenever any |z| > 10, the fused
-    exp(-0.5*s2) <= e^-50 ~ 2e-22, i.e. the clip only ever zeroed values
-    that are already 17 orders of magnitude below the additive kappa floor
-    (and f32 exp underflows to exactly 0 past s2 ~ 350).  Saves
-    3 abs + 2 max + 1 select per (slot, offset).  The XLA oracle keeps the
-    clip; the difference is bounded by COEF^3 * e^-50, far inside the
-    equality tolerances (and cannot flip pass B's "rightly updated" test,
-    whose threshold is 0.1);
-  - the COEF^3 normalization and (pass B) the forgetting factor multiply
-    are folded into the per-entry planes OUTSIDE the offset loop (weff and
-    ff carry them; acc is scaled once per group after the loop);
-  - pass B's per-offset division gk/ck_kappa is now a multiply by a
-    reciprocal plane computed once per pixel (obs plane 5 holds
-    valid/ck_kappa, which also absorbs the obs-valid mask: invalid pixels
-    carry 0);
-  - the obs-valid mask is likewise folded into the track plane (invalid
-    pixels carry track -1, which can never equal a real or empty-slot
-    track), so the kernels never load a separate validity plane.
+Pass B's "rightly updated" comparison keeps the oracle's expression
+(COEF^3 * exp(...) > 0.1) so the forget output rounds identically and is
+asserted bit-equal.  ck and the weights differ from the oracle only in f32
+summation order (tests/test_phd_pallas.py: rtol 2e-5).
 
-Pass B's "rightly updated" comparison still evaluates COEF^3 * exp(...) >
-0.1 with the oracle's exact expression/rounding order — the forget output is
-asserted bit-equal and a threshold refactor (e.g. exp > 0.1/COEF^3) would
-flip ulp-boundary cases.
-
-Reference semantics are identical to ops/phd.py (semantic_dsp_map.h:960-1121);
-equality is asserted by tests/test_phd_pallas.py in interpret mode and by the
-TPU-vs-XLA check in benchmarks/check_pallas.py.
+Semantics are those of ops/phd.py (semantic_dsp_map.h:960-1121).
 """
 
 from __future__ import annotations
@@ -69,46 +56,52 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 from ..config import (
+    FORGET_COUNT_INCREMENT_CAP,
     FilterParams,
     GAUSSIAN_PDF_COEF,
     MIN_RIGHTLY_UPDATED_PDF,
     MapConfig,
 )
+from .geometry import forgetting_factor
 
 _COEF3 = GAUSSIAN_PDF_COEF ** 3
 
-# Output tile shapes.  TH*TW lanes per vector op; TW a lane multiple keeps
-# the boundary shifts cheap.  Tuned per pass on hardware (round-4 sweep at
-# VKITTI2 shape): pass A amortizes its table DMA best at TH=24 (18.1 ->
-# 11.9 ms; TH=32 exceeds the VMEM budget), pass B is fastest at the small
-# tile (more buffers live per tile).
-_TH_A = 24
-_TH_B = 8
-_TW = 256
-
-#: Slot planes per liveness-predicated group.  Front-filling concentrates
-#: occupancy in the low planes, so groups of 4 capture most of the skip
-#: while keeping the unrolled instruction count at S/4 x (2R+1)^2 blocks.
-_GS = 4
+#: Output tile (rows, columns; powers of two, as the Triton route requires),
+#: warps and pipeline stages per program, per pass.  Chosen by a sweep on an
+#: H100 at the VKITTI2 and ZED2 shapes (PERF.md): the best sum of the two
+#: shapes' times among 8 tiles x {2, 4, 8} warps x {1, 2} stages.
+TILE_A, WARPS_A, STAGES_A = (8, 32), 8, 2
+TILE_B, WARPS_B, STAGES_B = (8, 64), 2, 2
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _round_up(a: int, m: int) -> int:
-    return _cdiv(a, m) * m
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
 
 
-def _pad_to(a, h: int, w: int, fill):
-    """Pad the trailing two dims of ``a`` up to (h, w) with ``fill``."""
-    ph = h - a.shape[-2]
-    pw = w - a.shape[-1]
-    cfgpad = [(0, 0)] * (a.ndim - 2) + [(0, ph), (0, pw)]
-    return jnp.pad(a, cfgpad, constant_values=fill)
+def _check_tile(th: int, tw: int):
+    for v in (th, tw):
+        if v <= 0 or v & (v - 1):
+            raise ValueError(f"PHD kernel tile {th}x{tw}: sides must be powers of two")
+
+
+def _halo_pad(a, R: int, rows: int, cols: int, fill):
+    """Pad the trailing (H, W) dims by R in front and up to (rows, cols)."""
+    H, W = a.shape[-2:]
+    cfg = [(0, 0)] * (a.ndim - 2) + [(R, rows - H - R), (R, cols - W - R)]
+    return jnp.pad(a, cfg, constant_values=fill)
+
+
+def _tile_pad(a, rows: int, cols: int, fill):
+    H, W = a.shape[-2:]
+    cfg = [(0, 0)] * (a.ndim - 2) + [(0, rows - H), (0, cols - W)]
+    return jnp.pad(a, cfg, constant_values=fill)
 
 
 # ---------------------------------------------------------------------------
@@ -117,148 +110,109 @@ def _pad_to(a, h: int, w: int, fill):
 
 
 def _pass_a_kernel(
-    tab_hbm,      # ANY [5*S, HT+2R, WT+2R] stacked padded tables
-    obs_ref,      # VMEM [5, TH, TW] (ox, oy, oz, inv_sigma, otrk)
-    ck_ref,       # VMEM out [TH, TW]
-    tab_vmem,     # scratch VMEM [5*S, TH+2R, TW+2R]
-    sem,          # DMA semaphore
-    *,
-    S: int,
-    R: int,
-    th: int,
-    tw: int,
-    id_p: float,
-    independent: bool,
-    gs: int,
+    tab_ref,      # ANY [5, S, Hp, Wp]: px, py, pz, w_eff * COEF^3, track
+    obs_ref,      # ANY [5, HT, WT]: ox, oy, oz, inv_sigma, track
+    ck_ref,       # out [TH, TW]
+    *, S: int, R: int, th: int, tw: int, lh: int, lw: int,
+    id_p: float, independent: bool,
 ):
-    i = pl.program_id(0)
-    j = pl.program_id(1)
+    r0 = pl.program_id(0) * th
+    c0 = pl.program_id(1) * tw
     side = 2 * R + 1
+    tile = lambda p: pltriton.load(obs_ref.at[p, pl.ds(r0, th), pl.ds(c0, tw)])
+    ox, oy, oz, inv_sig, otrk = (tile(p) for p in range(5))
 
-    sh = _round_up(th + 2 * R, 8)
-    sw = _round_up(tw + 2 * R, 128)
-    dma = pltpu.make_async_copy(
-        tab_hbm.at[:, pl.ds(i * th, sh), pl.ds(j * tw, sw)],
-        tab_vmem,
-        sem,
+    def slot(s, ck):
+        live = jnp.max(
+            pltriton.load(tab_ref.at[3, s, pl.ds(r0, lh), pl.ds(c0, lw)])
+        ) > 0.0
+
+        def offsets(ck):
+            def offset(o, ck):
+                dm = o // side
+                dn = o - dm * side
+                win = lambda p: pltriton.load(
+                    tab_ref.at[p, s, pl.ds(r0 + dm, th), pl.ds(c0 + dn, tw)]
+                )
+                zx = (win(0) - ox) * inv_sig
+                zy = (win(1) - oy) * inv_sig
+                zz = (win(2) - oz) * inv_sig
+                gk = jnp.exp(-0.5 * (zx * zx + zy * zy + zz * zz))
+                wtrk = win(4)
+                weff = win(3)
+                if independent:
+                    return ck + jnp.where(wtrk == otrk, weff * gk, 0.0)
+                return ck + weff * jnp.where(wtrk != otrk, gk * id_p, gk)
+
+            return jax.lax.fori_loop(0, side * side, offset, ck)
+
+        return jax.lax.cond(live, offsets, lambda ck: ck, ck)
+
+    ck_ref[...] = jax.lax.fori_loop(
+        0, S, slot, jnp.zeros((th, tw), jnp.float32)
     )
-    dma.start()
-
-    ox = obs_ref[0][None]
-    oy = obs_ref[1][None]
-    oz = obs_ref[2][None]
-    inv_sig = obs_ref[3][None]
-    otrk = obs_ref[4][None]
-
-    dma.wait()
-
-    ck_ref[:] = jnp.zeros((th, tw), jnp.float32)
-
-    for g0 in range(0, S, gs):
-        ge = min(S, g0 + gs)
-        # Liveness over the halo-included tile: w_eff >= 0 and zero-weight
-        # entries contribute exactly zero, so an all-zero group is lossless
-        # to skip.
-        live = jnp.max(tab_vmem[3 * S + g0 : 3 * S + ge]) > 0.0
-
-        @pl.when(live)
-        def _():
-            # Static double loop: Mosaic requires slice offsets it can prove
-            # aligned or fully static (dynamic sublane offsets reject with
-            # "cannot statically prove index is a multiple of 8"), so every
-            # (dm, dn) is unrolled.  COEF^3 is prefolded into the weight
-            # plane (wrapper) and the 10-sigma clip is dropped (module
-            # docstring: exp underflow bounds the difference at ~2e-22).
-            ck = jnp.zeros((th, tw), jnp.float32)
-            for dm in range(side):
-                for dn in range(side):
-                    win = lambda p: tab_vmem[
-                        p * S + g0 : p * S + ge, dm : dm + th, dn : dn + tw
-                    ]
-                    zx = (win(0) - ox) * inv_sig
-                    zy = (win(1) - oy) * inv_sig
-                    zz = (win(2) - oz) * inv_sig
-                    s2 = zx * zx + zy * zy + zz * zz
-                    gk = jnp.exp(-0.5 * s2)
-                    wtrk = win(4)
-                    weff = win(3)
-                    if independent:
-                        contrib = jnp.where(wtrk == otrk, weff * gk, 0.0)
-                    else:
-                        gk = jnp.where(wtrk != otrk, gk * id_p, gk)
-                        contrib = weff * gk
-                    ck = ck + jnp.sum(contrib, axis=0)
-            ck_ref[:] += ck
 
 
-def pass_a_pallas(
-    cfg: MapConfig,
-    params: FilterParams,
-    px, py, pz, weff, trk,     # [S, H, W] table planes (weff = w * forgetting)
-    obs_x, obs_y, obs_z, inv_sigma, obs_trk,  # [H, W]
-    interpret: bool = False,
-    th: int = _TH_A,
-    tw: int = _TW,
+def pass_a(
+    cfg: MapConfig, params: FilterParams, t, cloud,
+    *, interpret: bool = False, tile=TILE_A, num_warps: int = WARPS_A,
+    num_stages: int = STAGES_A,
 ):
-    """Raw per-pixel ck (before the valid mask / P_d / kappa), f32[H, W].
+    """Pass A on the kernel: ck_kappa f32[H, W], as ops/phd.stencil_pass_a.
     H/W derive from the table (may be an image-row slab with halo)."""
-    S, H, W = px.shape
+    th, tw = tile
+    _check_tile(th, tw)
+    S, H, W = t.px.shape
     R = cfg.neighbor_half
-    HT = _cdiv(H, th) * th
-    WT = _cdiv(W, tw) * tw
+    HT, WT = _cdiv(H, th) * th, _cdiv(W, tw) * tw
+    # The liveness window covers the tile and its halo.
+    lh, lw = _pow2_at_least(th + 2 * R), _pow2_at_least(tw + 2 * R)
 
-    # COEF^3 prefolded into the weight plane: one dense multiply here replaces
-    # a per-(slot, offset) multiply in the kernel (ck tolerance is rtol 2e-5;
-    # this changes rounding by <= 1 ulp).
-    tab = jnp.stack(
-        [px, py, pz, weff * _COEF3, trk.astype(jnp.float32)], axis=0
-    ).reshape(5 * S, H, W)
-    # Halo + tile-multiple padding, all zeros: the zero weight plane kills
-    # any halo/pad contribution regardless of the other planes' pad values.
-    sh = _round_up(th + 2 * R, 8)
-    sw = _round_up(tw + 2 * R, 128)
-    Hp = HT - th + sh
-    Wp = WT - tw + sw
-    tab = jnp.pad(
-        tab, [(0, 0), (R, Hp - H - R), (R, Wp - W - R)], constant_values=0.0
+    occupied = t.meta >= 0
+    if params.if_use_independent_filter:
+        weff = jnp.where(occupied, t.weight, 0.0)
+    else:
+        ff = forgetting_factor(
+            t.meta & 0xFF, params.forgetting_rate, params.max_forget_count
+        )
+        weff = jnp.where(occupied, t.weight * ff, 0.0)
+    # All-zero padding: the zero weight plane kills every halo contribution
+    # whatever the other planes hold there.
+    tab = _halo_pad(
+        jnp.stack([
+            t.px, t.py, t.pz, weff * _COEF3,
+            (t.meta >> 8).astype(jnp.float32),
+        ]),
+        R, HT - th + lh, WT - tw + lw, 0.0,
     )
-    obs = jnp.stack(
-        [obs_x, obs_y, obs_z, inv_sigma, obs_trk.astype(jnp.float32)], axis=0
+    obs = _tile_pad(
+        jnp.stack([
+            cloud.pos[..., 0], cloud.pos[..., 1], cloud.pos[..., 2],
+            1.0 / jnp.maximum(cloud.sigma, 1e-6),
+            cloud.track.astype(jnp.float32),
+        ]),
+        HT, WT, 0.0,
     )
-    obs = _pad_to(obs, HT, WT, 0.0)
-
-    grid = (HT // th, WT // tw)
     kernel = functools.partial(
-        _pass_a_kernel,
-        S=S,
-        R=R,
-        th=th,
-        tw=tw,
+        _pass_a_kernel, S=S, R=R, th=th, tw=tw, lh=lh, lw=lw,
         id_p=float(params.id_transition_probability),
         independent=bool(params.if_use_independent_filter),
-        gs=min(_GS, S),
     )
     ck = pl.pallas_call(
         kernel,
         out_shape=jax.ShapeDtypeStruct((HT, WT), jnp.float32),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec((5, th, tw), lambda i, j: (0, i, j), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((th, tw), lambda i, j: (i, j), memory_space=pltpu.VMEM),
-        scratch_shapes=[
-            pltpu.VMEM((5 * S, sh, sw), jnp.float32),
-            pltpu.SemaphoreType.DMA,
-        ],
-        # The leaner round-5 inner loop lets Mosaic schedule more offset
-        # iterations concurrently, pushing the scoped temporary stack past
-        # the default 16 MiB; the tile's real buffers are ~4 MiB, so grant
-        # headroom instead of shrinking the (DMA-amortizing) tile.
-        compiler_params=pltpu.CompilerParams(vmem_limit_bytes=64 * 1024 * 1024),
+        grid=(HT // th, WT // tw),
+        in_specs=[pl.BlockSpec(memory_space=pl.ANY)] * 2,
+        out_specs=pl.BlockSpec((th, tw), lambda i, j: (i, j)),
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(
+            num_warps=num_warps, num_stages=num_stages
+        ),
         interpret=interpret,
-    )(tab, obs)
-    return ck[:H, :W]
+        name="phd_pass_a",
+    )(tab, obs)[:H, :W]
+    ck = jnp.where(cloud.valid, ck, 0.0)
+    return ck * params.detection_probability + params.noise_number
 
 
 # ---------------------------------------------------------------------------
@@ -267,183 +221,127 @@ def pass_a_pallas(
 
 
 def _pass_b_kernel(
-    obs_hbm,      # ANY [5, HT+2R, WT+2R]: ox, oy, oz, otrk_eff, ick
-    tab_ref,      # VMEM [5, S, TH, TW]: px, py, pz, trk_eff, ffc (ff*COEF^3)
-    sig_ref,      # VMEM [1, TH, TW]: inv sigma at the particle's pixel
-    acc_ref,      # VMEM out [S, TH, TW]
-    right_ref,    # VMEM out [S, TH, TW] (0/1 f32)
-    obs_vmem,     # scratch VMEM [5, TH+2R, TW+2R]
-    sem,
-    *,
-    S: int,
-    R: int,
-    th: int,
-    tw: int,
-    id_p: float,
-    independent: bool,
-    gs: int,
+    obs_ref,      # ANY [5, Hp, Wp]: ox, oy, oz, track (-1 invalid), 1/ck_kappa
+    px_ref, py_ref, pz_ref, trk_ref, ffc_ref,  # [TH, TW] of one slot plane
+    sig_ref,      # [TH, TW]: inv sigma at the particle's own pixel
+    acc_ref, right_ref,                        # out [TH, TW] of one slot plane
+    *, R: int, th: int, tw: int, id_p: float, independent: bool,
 ):
-    i = pl.program_id(0)
-    j = pl.program_id(1)
+    r0 = pl.program_id(1) * th
+    c0 = pl.program_id(2) * tw
     side = 2 * R + 1
+    ptrk = trk_ref[...]
+    zero = jnp.zeros((th, tw), jnp.float32)
 
-    sh = _round_up(th + 2 * R, 8)
-    sw = _round_up(tw + 2 * R, 128)
-    dma = pltpu.make_async_copy(
-        obs_hbm.at[:, pl.ds(i * th, sh), pl.ds(j * tw, sw)],
-        obs_vmem,
-        sem,
+    def offsets():
+        ppx, ppy, ppz = px_ref[...], py_ref[...], pz_ref[...]
+        inv_sig = sig_ref[...]
+
+        def offset(o, carry):
+            acc, rmax = carry
+            dm = o // side
+            dn = o - dm * side
+            win = lambda p: pltriton.load(
+                obs_ref.at[p, pl.ds(r0 + dm, th), pl.ds(c0 + dn, tw)]
+            )
+            zx = (ppx - win(0)) * inv_sig
+            zy = (ppy - win(1)) * inv_sig
+            zz = (ppz - win(2)) * inv_sig
+            e = jnp.exp(-0.5 * (zx * zx + zy * zy + zz * zz))
+            same = ptrk == win(3)
+            ick = win(4)
+            if independent:
+                return acc + jnp.where(same, e, 0.0) * ick, rmax
+            rmax = jnp.maximum(rmax, jnp.where(same, _COEF3 * e, 0.0))
+            return acc + jnp.where(same, e, e * id_p) * ick, rmax
+
+        acc, rmax = jax.lax.fori_loop(0, side * side, offset, (zero, zero))
+        return acc * ffc_ref[...], rmax
+
+    acc, rmax = jax.lax.cond(
+        jnp.max(ptrk) > -1.5, offsets, lambda: (zero, zero)
     )
-    dma.start()
-
-    inv_sig = sig_ref[0][None]
-
-    dma.wait()
-
-    acc_ref[:] = jnp.zeros((S, th, tw), jnp.float32)
-    right_ref[:] = jnp.zeros((S, th, tw), jnp.float32)
-
-    for g0 in range(0, S, gs):
-        ge = min(S, g0 + gs)
-        # Liveness = any OCCUPIED slot in the group's tile (empty slots carry
-        # the -2 track sentinel; the tab padding uses -2 too).  ffc would
-        # over-skip: occupied-but-fully-forgotten entries have ff == 0 yet
-        # must still compute ``right`` to be revivable.
-        live = jnp.max(tab_ref[3, g0:ge]) > -1.5
-
-        @pl.when(live)
-        def _():
-            ppx = tab_ref[0, g0:ge]
-            ppy = tab_ref[1, g0:ge]
-            ppz = tab_ref[2, g0:ge]
-            ptrk = tab_ref[3, g0:ge]
-            ffc = tab_ref[4, g0:ge]
-
-            # The obs-valid mask rides the otrk_eff (-1 at invalid pixels:
-            # never equals a real track or the -2 empty sentinel) and ick
-            # (0 at invalid pixels) planes; ffc carries ff * COEF^3 (and the
-            # occupied mask: 0 on empty slots) so the offset loop multiplies
-            # it exactly once per group, after the accumulation.
-            acc = jnp.zeros((ge - g0, th, tw), jnp.float32)
-            rmax = jnp.zeros((ge - g0, th, tw), jnp.float32)
-            for dm in range(side):
-                band = obs_vmem[:, dm : dm + th, :]         # [5, th, tw+2R]
-                for dn in range(side):
-                    w5 = band[:, :, dn : dn + tw]            # [5, th, tw]
-                    zx = (ppx - w5[0][None]) * inv_sig
-                    zy = (ppy - w5[1][None]) * inv_sig
-                    zz = (ppz - w5[2][None]) * inv_sig
-                    s2 = zx * zx + zy * zy + zz * zz
-                    e = jnp.exp(-0.5 * s2)
-                    otrk = w5[3][None]
-                    ick = w5[4][None]
-                    same = ptrk == otrk
-                    if independent:
-                        acc = acc + jnp.where(same, e, 0.0) * ick
-                    else:
-                        # The "rightly updated" comparison keeps the oracle's
-                        # exact expression (COEF^3 * exp > 0.1): the forget
-                        # output is asserted bit-equal, so the threshold must
-                        # round identically.
-                        g3 = _COEF3 * e
-                        rmax = jnp.maximum(rmax, jnp.where(same, g3, 0.0))
-                        acc = acc + jnp.where(same, e, e * id_p) * ick
-            acc_ref[g0:ge] = acc * ffc
-            if not independent:
-                right_ref[g0:ge] = jnp.where(
-                    rmax > MIN_RIGHTLY_UPDATED_PDF, 1.0, 0.0
-                )
+    acc_ref[...] = acc
+    right_ref[...] = jnp.where(rmax > MIN_RIGHTLY_UPDATED_PDF, 1.0, 0.0)
 
 
-def pass_b_pallas(
-    cfg: MapConfig,
-    params: FilterParams,
-    px, py, pz,            # [S, H, W] particle positions
-    trk_eff,               # [S, H, W] i32: track id, or -2 where slot empty
-    ff_eff,                # [S, H, W] f32: forgetting factor, 0 where empty
-    inv_sigma_p,           # [H, W] f32: 1/sigma at the particle's own pixel
-    obs_x, obs_y, obs_z,   # [H, W]
-    obs_valid,             # bool[H, W]
-    obs_trk,               # i32[H, W]
-    ck_kappa,              # f32[H, W]
-    interpret: bool = False,
-    th: int = _TH_B,
-    tw: int = _TW,
+def pass_b(
+    cfg: MapConfig, params: FilterParams, t, cloud, ck_kappa,
+    *, interpret: bool = False, tile=TILE_B, num_warps: int = WARPS_B,
+    num_stages: int = STAGES_B,
 ):
-    """Returns (acc, right) as f32[S, H, W] (right is a 0/1 indicator).
-    H/W derive from the table (may be an image-row slab with halo)."""
-    S, H, W = px.shape
+    """Pass B on the kernel: (new_weight, new_forget) [S, H, W], as
+    ops/phd.stencil_pass_b.  H/W derive from the table."""
+    th, tw = tile
+    _check_tile(th, tw)
+    S, H, W = t.px.shape
     R = cfg.neighbor_half
-    HT = _cdiv(H, th) * th
-    WT = _cdiv(W, tw) * tw
+    HT, WT = _cdiv(H, th) * th, _cdiv(W, tw) * tw
+    independent = params.if_use_independent_filter
 
-    # Validity folding (module docstring): invalid pixels carry track -1
-    # (never equals a real track or the -2 empty sentinel) and a zero
-    # reciprocal, so the kernel needs neither a validity plane nor a
-    # division — the padding beyond the image is identical to an invalid
-    # pixel (track -1, everything else 0).
-    otrk_eff = jnp.where(obs_valid, obs_trk, -1).astype(jnp.float32)
-    ick = jnp.where(obs_valid, 1.0 / ck_kappa, 0.0)
-    obs = jnp.stack([obs_x, obs_y, obs_z, otrk_eff, ick], axis=0)
-    sh = _round_up(th + 2 * R, 8)
-    sw = _round_up(tw + 2 * R, 128)
-    Hp = HT - th + sh
-    Wp = WT - tw + sw
-    pads = jnp.array([0.0, 0.0, 0.0, -1.0, 0.0], jnp.float32)
-    padcfg = [(0, 0), (R, Hp - H - R), (R, Wp - W - R)]
-    obs = jnp.pad(obs, padcfg) + (
-        jnp.pad(jnp.zeros((5, H, W), jnp.float32), padcfg, constant_values=1.0)
-        * pads[:, None, None]
-    )
+    occupied = t.meta >= 0
+    track_t = t.meta >> 8
+    forget_t = t.meta & 0xFF
+    if independent:
+        ff_eff = occupied.astype(jnp.float32)
+    else:
+        ff = forgetting_factor(forget_t, params.forgetting_rate, params.max_forget_count)
+        ff_eff = jnp.where(occupied, ff, 0.0)
 
-    # Tile padding of the table: the track plane pads with the EMPTY sentinel
-    # so all-padding groups read as dead (liveness) rather than as track 0.
-    # COEF^3 prefolds into the forgetting plane (applied once per group in
-    # the kernel, after the offset accumulation).
-    tab = jnp.stack(
-        [
-            _pad_to(px, HT, WT, 0.0),
-            _pad_to(py, HT, WT, 0.0),
-            _pad_to(pz, HT, WT, 0.0),
-            _pad_to(trk_eff.astype(jnp.float32), HT, WT, -2.0),
-            _pad_to(ff_eff * _COEF3, HT, WT, 0.0),
-        ],
-        axis=0,
-    )
-    sig = _pad_to(inv_sigma_p[None], HT, WT, 1.0)
+    # Padding beyond the image reads as an invalid pixel: track -1, zero
+    # reciprocal, zero position.
+    valid = cloud.valid
+    planes = [
+        (cloud.pos[..., 0], 0.0), (cloud.pos[..., 1], 0.0),
+        (cloud.pos[..., 2], 0.0),
+        (jnp.where(valid, cloud.track, -1).astype(jnp.float32), -1.0),
+        (jnp.where(valid, 1.0 / ck_kappa, 0.0), 0.0),
+    ]
+    obs = jnp.stack([
+        _halo_pad(a, R, HT + 2 * R, WT + 2 * R, fill) for a, fill in planes
+    ])
+    # Tile padding of the table: the track plane pads with the empty
+    # sentinel so padding reads as dead.
+    tabs = [
+        _tile_pad(t.px, HT, WT, 0.0),
+        _tile_pad(t.py, HT, WT, 0.0),
+        _tile_pad(t.pz, HT, WT, 0.0),
+        _tile_pad(jnp.where(occupied, track_t, -2).astype(jnp.float32), HT, WT, -2.0),
+        _tile_pad(ff_eff * _COEF3, HT, WT, 0.0),
+    ]
+    sig = _tile_pad(1.0 / jnp.maximum(cloud.sigma, 1e-6), HT, WT, 1.0)
 
-    grid = (HT // th, WT // tw)
+    slab = pl.BlockSpec((None, th, tw), lambda s, i, j: (s, i, j))
     kernel = functools.partial(
-        _pass_b_kernel,
-        S=S,
-        R=R,
-        th=th,
-        tw=tw,
+        _pass_b_kernel, R=R, th=th, tw=tw,
         id_p=float(params.id_transition_probability),
-        independent=bool(params.if_use_independent_filter),
-        gs=min(_GS, S),
+        independent=bool(independent),
     )
     acc, right = pl.pallas_call(
         kernel,
-        out_shape=(
-            jax.ShapeDtypeStruct((S, HT, WT), jnp.float32),
-            jax.ShapeDtypeStruct((S, HT, WT), jnp.float32),
+        out_shape=(jax.ShapeDtypeStruct((S, HT, WT), jnp.float32),) * 2,
+        grid=(S, HT // th, WT // tw),
+        in_specs=[pl.BlockSpec(memory_space=pl.ANY)] + [slab] * 5
+        + [pl.BlockSpec((th, tw), lambda s, i, j: (i, j))],
+        out_specs=(slab, slab),
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(
+            num_warps=num_warps, num_stages=num_stages
         ),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec((5, S, th, tw), lambda i, j: (0, 0, i, j), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, th, tw), lambda i, j: (0, i, j), memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec((S, th, tw), lambda i, j: (0, i, j), memory_space=pltpu.VMEM),
-            pl.BlockSpec((S, th, tw), lambda i, j: (0, i, j), memory_space=pltpu.VMEM),
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((5, sh, sw), jnp.float32),
-            pltpu.SemaphoreType.DMA,
-        ],
-        compiler_params=pltpu.CompilerParams(vmem_limit_bytes=64 * 1024 * 1024),
         interpret=interpret,
-    )(obs, tab, sig)
-    return acc[:, :H, :W], right[:, :H, :W]
+        name="phd_pass_b",
+    )(obs, *tabs, sig)
+    acc, right = acc[:, :H, :W], right[:, :H, :W]
+
+    new_weight = t.weight * (
+        acc * params.detection_probability + 1.0 - params.detection_probability
+    )
+    new_weight = jnp.where(occupied, new_weight, t.weight)
+    if independent:
+        return new_weight, forget_t
+    new_forget = jnp.where(
+        right > 0.0,
+        0,
+        jnp.where(forget_t < FORGET_COUNT_INCREMENT_CAP, forget_t + 1, forget_t),
+    )
+    return new_weight, new_forget

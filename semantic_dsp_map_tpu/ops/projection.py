@@ -6,7 +6,7 @@ These are hot loops #1 and #2 of the reference frame kernel:
   - updateVisibleParitlcesWithBFS / getIdxOfVisibleParitlces
     (operations.h:653-667, 1297-1457): the reference walks frustum voxels
     with a vertex BFS purely to avoid scanning all voxels on a CPU.  The
-    TPU-native production path is the fused block pipeline in
+    production path is the fused block pipeline in
     ops/observe.py; the :class:`VisibleSet` container kept here is the
     test/diagnostic surface for the PHD oracle tests.
 """
@@ -20,6 +20,7 @@ import jax.numpy as jnp
 
 from ..config import FilterParams, MapConfig
 from ..labels import BACKGROUND_INSTANCE_ID
+from .geometry import mm
 
 
 class LabeledCloud(NamedTuple):
@@ -85,7 +86,7 @@ def generate_labeled_cloud(
     x_cam = (cols - cfg.cx) / cfg.fx * depth
     y_cam = (rows - cfg.cy) / cfg.fy * depth
     cam = jnp.stack([x_cam, y_cam, depth], axis=-1)
-    pos = cam @ r_wc.T + t_wc
+    pos = mm(cam, r_wc.T) + t_wc
 
     # ZED2 bbox gating: movable-instance pixels whose 3D point falls outside
     # the instance's keypoint bbox (+margin) become Background.

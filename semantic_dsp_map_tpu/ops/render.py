@@ -54,8 +54,8 @@ def _render_chunk(cfg: MapConfig, occupancy_threshold: float,
     """Per-voxel reduction over one contiguous chunk of voxels.
 
     All render math is voxel-local, so big grids stream through fixed-size
-    chunks (lax.map in render_occupancy) — the fused whole-grid program
-    planned 28.6 GB of HBM at KITTI-360 scale.  Returns (occ, label, track,
+    chunks (lax.map in render_core_xla), which bounds the temporaries of the
+    fused whole-grid program at KITTI-360 scale.  Returns (occ, label, track,
     weight_sum, new_weight_flat, new_status_flat)."""
     K = cfg.slots_per_voxel
     Vc = vax.shape[0]
@@ -81,48 +81,13 @@ def _render_chunk(cfg: MapConfig, occupancy_threshold: float,
 
     guessed_weight = jnp.sum(jnp.where(guessed, w_clamped, 0.0), axis=1)
 
-    # Per-(voxel, track) weight accumulation over the K slots.  Any per-
-    # column [V, 1] broadcast or minor-axis roll on the [V, K] view explodes
-    # into relayout copies (~310 ms/frame / compile-time OOM at VKITTI2
-    # scale, round-3 bisection), so:
-    #   - the pairwise same-track sum runs as voxel-circular LANE shifts on
-    #     the [rows, spb] view (spb is a multiple of K, rows hold whole
-    #     voxels — the proven-fast shape from ops/birth.py's merge);
-    #   - per-voxel argmax runs as axis-1 reduces (cheap) with flat
-    #     jnp.repeat for the "broadcast back to slots" steps.
-    from .blocks import block_layout
-
+    # Per-(voxel, track) weight accumulation over the K slots: each slot
+    # sums the contributions of the slots carrying its track (a [Vc, K, K]
+    # compare that XLA fuses into the reduction).
     contrib_mask = alive & ~gc
     contrib = jnp.where(contrib_mask, w_clamped, 0.0)
-
-    bv, _nb_full, spb = block_layout(cfg)
-    V = Vc
-    nb = Vc * K // spb
-
-    def lanes(a):
-        return a.reshape(nb, spb)
-
-    d_lane = jax.lax.broadcasted_iota(jnp.int32, (nb, spb), 1) % K
-
-    def lane_shift(x, s):
-        """out[:, j] = x[:, j - s] (edge pads never selected: shifts stay
-        within each voxel's K lanes)."""
-        if s == 0:
-            return x
-        pad = jnp.zeros((nb, abs(s)), x.dtype)
-        if s > 0:
-            return jnp.concatenate([pad, x[:, : spb - s]], axis=1)
-        return jnp.concatenate([x[:, -s:], pad], axis=1)
-
-    trk_l = lanes(p.track)
-    con_l = lanes(contrib)
-    ts_l = con_l
-    for s in range(1, K):
-        # voxel-circular neighbor at slot (d + s) mod K
-        t_n = jnp.where(d_lane < K - s, lane_shift(trk_l, -s), lane_shift(trk_l, K - s))
-        c_n = jnp.where(d_lane < K - s, lane_shift(con_l, -s), lane_shift(con_l, K - s))
-        ts_l = ts_l + jnp.where(trk_l == t_n, c_n, 0.0)
-    track_sum = ts_l.reshape(V, K)
+    same = p.track[:, :, None] == p.track[:, None, :]
+    track_sum = jnp.sum(jnp.where(same, contrib[:, None, :], 0.0), axis=2)
 
     # Argmax by (track weight, then lowest track id), restricted to
     # contributing slots with positive summed weight (max_weight starts at 0
@@ -131,16 +96,14 @@ def _render_chunk(cfg: MapConfig, occupancy_threshold: float,
     score_ok = contrib_mask & (track_sum > 0.0)
     best_w = jnp.max(jnp.where(score_ok, track_sum, -1.0), axis=1)
     found = best_w > 0.0
-    bw_s = jnp.repeat(best_w, K).reshape(V, K)
-    is_best = score_ok & (track_sum == bw_s)
+    is_best = score_ok & (track_sum == best_w[:, None])
     best_track = jnp.min(jnp.where(is_best, p.track, big), axis=1)
 
     # Label of the winning track = label of the highest-index contributing
     # slot carrying that track (last writer wins in the reference's map,
     # operations.h:435): encode (slot << 8 | label) and max-reduce.
-    bt_s = jnp.repeat(best_track, K).reshape(V, K)
-    slot_idx = jax.lax.broadcasted_iota(jnp.int32, (V, K), 1)
-    match = contrib_mask & (p.track == bt_s)
+    slot_idx = jax.lax.broadcasted_iota(jnp.int32, (Vc, K), 1)
+    match = contrib_mask & (p.track == best_track[:, None])
     pick = jnp.max(jnp.where(match, (slot_idx << 8) | (p.label & 0xFF), -1), axis=1)
     best_label = jnp.where(pick >= 0, pick & 0xFF, 0)
 
@@ -178,28 +141,8 @@ def _render_chunk(cfg: MapConfig, occupancy_threshold: float,
 RENDER_CHUNK_VOXELS = 1 << 20
 
 
-def render_occupancy(
-    cfg: MapConfig,
-    state: MapState,
-    occupancy_threshold: float,
-):
-    """Returns (particles_after_gc, RenderResult).
-
-    Dispatches to the fused Pallas kernel on TPU (ops/render_pallas.py);
-    the XLA reduction below is the fallback and the tested oracle."""
-    from .render_pallas import render_occupancy_pallas, render_pallas_supported
-
-    if (
-        cfg.use_pallas_render
-        and jax.default_backend() == "tpu"
-        and render_pallas_supported(cfg)
-    ):
-        return render_occupancy_pallas(cfg, state, occupancy_threshold)
-    return render_occupancy_xla(cfg, state, occupancy_threshold)
-
-
 @partial(jax.jit, static_argnums=(0, 2))
-def render_occupancy_xla(
+def render_occupancy(
     cfg: MapConfig,
     state: MapState,
     occupancy_threshold: float,

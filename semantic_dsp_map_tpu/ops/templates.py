@@ -1,6 +1,6 @@
 """CAD-template matching: the "guessed" particle birth subsystem.
 
-TPU-native re-design of the reference's template machinery
+Array-program re-design of the reference's template machinery
 (pointcloud_tools.h:318-1097, used by semantic_dsp_map.h:616-669 and
 :806-894):
 
@@ -36,6 +36,8 @@ from typing import Dict, List, NamedTuple, Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from .geometry import mm
 
 #: Match-grid voxel size (pointcloud_tools.h:740 / :928: voxel_size = 0.2f).
 TM_VOXEL_SIZE = 0.2
@@ -249,7 +251,7 @@ def template_match(
     J = jitter.shape[0]
 
     def per_angle(carry, Ra):
-        rot = tpl @ Ra.T + push  # rotate then move by push (transform order,
+        rot = mm(tpl, Ra.T) + push  # rotate then move by push (transform order,
         # pointcloud_tools.h:778-781)
         td2 = jnp.sum(rot * rot, axis=1)
         td2 = jnp.where(tpl_valid, td2, big)
@@ -281,7 +283,7 @@ def template_match(
     T = jnp.eye(4, dtype=jnp.float32)
     T = T.at[:3, :3].set(Rb)
     T = T.at[:3, 3].set(move)
-    aligned = tpl @ Rb.T + move
+    aligned = mm(tpl, Rb.T) + move
 
     # score > 0 required downstream; an all-miss sweep (intersection 0) keeps
     # the reference's "uninitialized best transform" from mattering.

@@ -1,6 +1,6 @@
 """Rigid transform estimation: masked Kabsch/SVD fit and batched RANSAC.
 
-TPU-native equivalents of estimateTransformation (basic_algorithms.h:56-95)
+Batched equivalents of estimateTransformation (basic_algorithms.h:56-95)
 and estimateTransformationRANSAC (basic_algorithms.h:106-195).  The reference
 runs a serial hypothesis loop with rejection-sampled index triples; here all
 hypotheses are evaluated as one batched 3x3-SVD problem, and distinct random
@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+
+from .geometry import HIGHEST, mm
 
 
 def kabsch(P, Q, mask):
@@ -32,17 +34,17 @@ def kabsch(P, Q, mask):
     Qc = (Q - cq[..., None, :]) * m
 
     # Cross-covariance H = Pc^T Qc (3x3).
-    H = jnp.einsum("...ni,...nj->...ij", Pc, Qc)
+    H = jnp.einsum("...ni,...nj->...ij", Pc, Qc, precision=HIGHEST)
 
     U, _, Vt = jnp.linalg.svd(H)
     V = jnp.swapaxes(Vt, -1, -2)
-    R = V @ jnp.swapaxes(U, -1, -2)
+    R = mm(V, jnp.swapaxes(U, -1, -2))
     det = jnp.linalg.det(R)
     # Reflection fix: flip the third column of V (basic_algorithms.h:81-84).
     Vfix = V.at[..., :, 2].multiply(jnp.where(det < 0, -1.0, 1.0)[..., None])
-    R = Vfix @ jnp.swapaxes(U, -1, -2)
+    R = mm(Vfix, jnp.swapaxes(U, -1, -2))
 
-    t = cq - jnp.einsum("...ij,...j->...i", R, cp)
+    t = cq - jnp.einsum("...ij,...j->...i", R, cp, precision=HIGHEST)
 
     T = jnp.zeros(P.shape[:-2] + (4, 4), jnp.float32)
     T = T.at[..., :3, :3].set(R)
@@ -56,7 +58,7 @@ def apply_transform(T, pts):
     """T[..., 4, 4] applied to pts[..., N, 3]."""
     R = T[..., :3, :3]
     t = T[..., :3, 3]
-    return jnp.einsum("...ij,...nj->...ni", R, pts) + t[..., None, :]
+    return jnp.einsum("...ij,...nj->...ni", R, pts, precision=HIGHEST) + t[..., None, :]
 
 
 def _normalize(v, eps=1e-12):
@@ -77,19 +79,19 @@ def triangle_fit(Ps, Qs):
 
     For an exact correspondence this equals the SVD/Kabsch fit; for noisy
     triples it differs within the RANSAC inlier tolerance.  Used for the
-    RANSAC *hypotheses* because batched 3x3 SVDs dominate the object-layer
-    cost on TPU (~57 ms/frame at 32 instances x 100 hypotheses, round-3
-    ablation); the final refit still uses the masked Kabsch SVD.
+    RANSAC *hypotheses* because batched 3x3 SVDs (32 instances x 100
+    hypotheses) would dominate the object-layer cost; the final refit still
+    uses the masked Kabsch SVD.
 
     Degenerate (collinear) samples produce non-finite frames; callers mask.
     Args: Ps, Qs f32[..., 3, 3] (3 points each).  Returns T f32[..., 4, 4].
     """
     Fp = _triangle_frame(Ps[..., 0, :], Ps[..., 1, :], Ps[..., 2, :])
     Fq = _triangle_frame(Qs[..., 0, :], Qs[..., 1, :], Qs[..., 2, :])
-    R = Fq @ jnp.swapaxes(Fp, -1, -2)
+    R = mm(Fq, jnp.swapaxes(Fp, -1, -2))
     cp = jnp.mean(Ps, axis=-2)
     cq = jnp.mean(Qs, axis=-2)
-    t = cq - jnp.einsum("...ij,...j->...i", R, cp)
+    t = cq - jnp.einsum("...ij,...j->...i", R, cp, precision=HIGHEST)
     T = jnp.zeros(Ps.shape[:-2] + (4, 4), jnp.float32)
     T = T.at[..., :3, :3].set(R)
     T = T.at[..., :3, 3].set(t)

@@ -7,16 +7,15 @@ is split over the global mesh so each host holds a contiguous slab of
 z-columns in its local HBM; the per-frame inputs (depth image, masks, pose)
 are tiny and replicated from every host's feeder; XLA SPMD inserts the
 cross-slab collectives (the pixel-table reduction and the render gather ride
-ICI within a host and DCN across hosts).
+NVLink within a host and the network across hosts).
 
 Entry points:
   - :func:`initialize` — one call per process before any jax use.
   - :func:`global_mesh` — a 1-D mesh over every device of every host.
   - :func:`weak_scaling_report` — particle-updates/sec at n devices vs 1
-    device with per-device problem size held constant (the BASELINE.json
-    >=80 % two-host target's measurement harness; runnable today on the
-    8-virtual-device CPU platform or a single real chip, and unchanged on a
-    multi-host pod).
+    device with per-device problem size held constant (runnable on the
+    8-virtual-device CPU platform or on the GPUs of one host, and unchanged
+    across hosts).
 
 Run as a module for the report:
     python -m semantic_dsp_map_tpu.parallel.distributed [--devices 8]
@@ -38,8 +37,9 @@ def initialize(
 ):
     """jax.distributed.initialize wrapper.
 
-    With no arguments JAX autodetects the cluster (TPU pod metadata / env
-    vars); on a single host this is a no-op that leaves jax.devices() as-is.
+    Initializes only when a cluster is configured (more than one process);
+    a single process leaves jax.devices() as it is.  Nothing is
+    autodetected, and a failure to join the cluster propagates.
     """
     import jax
 
@@ -49,11 +49,6 @@ def initialize(
             num_processes=num_processes,
             process_id=process_id,
         )
-    else:
-        try:
-            jax.distributed.initialize()
-        except Exception:
-            pass  # single-process fallback (no cluster env)
 
 
 def global_mesh(axis: str = "grid"):
@@ -120,8 +115,7 @@ def _base_config(preset: str):
 
     ``tiny`` is CI-fast but so small that routing fixed costs and dispatch
     dominate; ``medium`` gives each device a 65k-voxel slab and a 192x256
-    image slice so the measured scaling reflects real work (VERDICT r3
-    weak #7: the tiny anchor was ~80x below the production rate)."""
+    image slice so the measured scaling reflects real work."""
     from ..config import tiny_test_config
 
     if preset == "tiny":
@@ -154,7 +148,7 @@ def weak_scaling_report(n_devices: int, frames: int = 10,
     Efficiency = updates/sec at n devices / (n x updates/sec at 1 device on
     the base workload).  ``flops_ratio`` is the per-device compiled-FLOP
     ratio (grown-n-dev / base-1-dev): ~1.0 means per-device work is constant
-    (the VERDICT r3 'per-device FLOPs ~ 1/N of single-device' criterion).
+    (the 'per-device FLOPs ~ 1/N of single-device' criterion).
 
     CAVEAT: on the virtual-CPU mesh all "devices" share the host's cores, so
     wall-clock efficiency under-reports what real chips would show; the
@@ -188,6 +182,9 @@ def weak_scaling_report(n_devices: int, frames: int = 10,
         max_moving_blocks=base_cfg.max_moving_blocks * n_devices,
         max_table_entries=base_cfg.max_table_entries * n_devices,
         corner_gather_blocks=base_cfg.corner_gather_blocks * n_devices,
+        # Per-device caps of ~1/D: what weak scaling measures (the test
+        # scene spreads over the slabs; shard_step.shard_caps).
+        shard_route_headroom=1.2,
     )
     upsN, gflopN = _bench_one(grown, params, n_devices, frames)
 
@@ -236,8 +233,8 @@ def main():
             env["JAX_PLATFORMS"] = "cpu"
             env["_DSP_CPU_REEXEC"] = "1"
             # Bootstrap via -c so jax.config forces the CPU platform BEFORE
-            # the package import (some plugins ignore the env var, and any
-            # device use at import time would pin the wrong backend).
+            # the package import (any device use at import time would pin
+            # the wrong backend).
             code = (
                 "import jax; jax.config.update('jax_platforms', 'cpu'); "
                 "import runpy; runpy.run_module("
@@ -249,9 +246,6 @@ def main():
                 env,
             )
         import jax
-
-        # belt and braces: some plugins ignore JAX_PLATFORMS
-        jax.config.update("jax_platforms", "cpu")
     else:
         import jax
 

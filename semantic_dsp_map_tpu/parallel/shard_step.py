@@ -31,11 +31,13 @@ pyramid, buffer.h:89-93):
   objects   the object table is tiny and replicated; every device runs the
             identical object-level update (no communication at all).
 
-Fixed bucket capacities keep every shape static; spatial skew beyond a
-bucket drops work for ONE frame and is surfaced in StepDiagnostics
-(entry/birth/move overflow counters) — never silent.  Per-device capacities
-scale as 1/D so per-device compiled work actually shrinks with the mesh
-(weak scaling), at the cost of overflow under extreme skew.
+Fixed bucket capacities keep every shape static (shard_caps).  By default
+each device gets the single-chip working sets and each route bucket its
+source's whole volume: a z-slab can hold a camera's whole frustum, so no
+smaller static size is safe.  ``config.shard_route_headroom`` trades that
+for per-device capacities of ~1/D (per-device work shrinks with the mesh);
+skew beyond a bucket then drops work for ONE frame and is surfaced in
+StepDiagnostics (entry/birth/move overflow counters) — never silent.
 
 Equality with the single-device step is asserted by
 tests/test_shard_step.py on the 8-virtual-device CPU mesh (noise paths off,
@@ -86,13 +88,6 @@ from ..state import MapState, Particles, STATUS_INVALID, STATUS_REGULAR_BORN, ST
 from ..frontend import FrameInput
 
 AXIS = "grid"
-
-
-def _use_pallas(cfg: MapConfig) -> bool:
-    return (
-        cfg.use_pallas_observe
-        and jax.default_backend() == "tpu"
-    )
 
 
 # ---------------------------------------------------------------------------
@@ -299,19 +294,20 @@ def _exchange_ck_halo(ck: jax.Array, D: int, rpd: int, ext0: int):
 def shard_caps(cfg: MapConfig, params: FilterParams, D: int) -> dict:
     """Per-device working-set and route-bucket capacities.
 
-    Capacities ~ headroom_eff/D of the single-chip knobs (overflow is
-    counted, never silent).  The headroom knob bounds the sharded design's
-    per-device FLOP overhead: >=80% weak-scaling efficiency requires
-    per-device compiled work <= ~1.25x the 1/D share.  The margin scales
-    with the relative load variance of a slab, (1 - 1/D): full margin in
-    the many-small-slabs limit, none at D=1 (no routing) — see
-    config.shard_route_headroom.
+    The grid's z-slabs meet a camera that looks along its own axis: a
+    forward-looking camera sends most of a frame's points to one or two
+    slabs (on four H100s at VKITTI2 width, buckets at 1.15/4 of a source's
+    volume dropped 284,716 births in one frame).  So by default
+    (``shard_route_headroom=None``) every device gets the single-chip
+    working sets and every (src, dst) bucket the source's whole volume:
+    the effective headroom is D, and nothing the single-chip step keeps
+    can overflow.  A float headroom sizes everything at ``headroom_eff/D``
+    of that, with the margin scaled by a slab's relative load variance
+    (1 - 1/D) — see config.shard_route_headroom.
 
-    Round-5 FLOP isolation (benchmarks/probe_shard_flops2.py) found the
-    previously un-scaled move/birth insert working sets were 0.30 of the
-    0.35 GFLOP/device overhead at D=8 (each _insert_core gathers, merges
-    and scatters ~9 fields over its whole [A, spb] working set), so EVERY
-    per-device buffer here scales with headroom_eff/D.
+    Each _insert_core gathers, merges and scatters ~9 fields over its whole
+    [A, spb] working set, so EVERY per-device buffer here scales with
+    headroom_eff/D.
     """
     V, K = cfg.num_voxels, cfg.slots_per_voxel
     V_loc = V // D
@@ -319,7 +315,10 @@ def shard_caps(cfg: MapConfig, params: FilterParams, D: int) -> dict:
     rpd = -(-H // D)
     bv, _nb_full, spb = block_layout(cfg)
     nb_loc = V_loc // bv
-    hroom = 1.0 + (float(cfg.shard_route_headroom) - 1.0) * (1.0 - 1.0 / D)
+    if cfg.shard_route_headroom is None:
+        hroom = float(D)
+    else:
+        hroom = 1.0 + (float(cfg.shard_route_headroom) - 1.0) * (1.0 - 1.0 / D)
     floor = int(cfg.shard_route_floor)
 
     def scaled(knob, lo):
@@ -393,8 +392,8 @@ def build_shard_map_step(
     ``packed=True`` the step instead takes the ONE-BUFFER packed frame
     (frontend.pack_frame) and decodes it device-side exactly like the
     single-chip path (map.unpack_frame) — one host->device array per frame
-    instead of 14 replicated leaves (the round-4 transfer lesson: each
-    array costs ~25 ms of host-link latency on this platform).  The buffer
+    instead of 14 replicated leaves (each transfer pays a fixed latency).
+    The buffer
     is replicated; the decode is a cheap dense pass that every device runs
     identically."""
     D = int(mesh.devices.size)
@@ -456,22 +455,13 @@ def build_shard_map_step(
         pv = particles_vk_sized(particles, V_loc, K)
 
         # -- local candidate masks (front) --
-        if _use_pallas(cfg):
-            from ..ops.observe_pallas import front_candidates
-
-            ha_u8, hc_u8 = front_candidates(
-                cfg, flat, scroll, r_cw, t_cw, vox_axis=vox_axis
-            )
-            has_alive = ha_u8 != 0
-            block_mask = jnp.any(hc_u8.reshape(nb_loc, bv) != 0, axis=1)
-        else:
-            alive_d = codecs.particle_alive(pv.status, pv.stamp, vox_axis)
-            _, _, _, proj_ok = project_to_image_xyz(
-                cfg, r_cw, t_cw, pv.px, pv.py, pv.pz
-            )
-            cand_d = proj_ok & alive_d
-            has_alive = jnp.any(alive_d, axis=1)
-            block_mask = mask_to_block_mask(cand_d, bv)
+        alive_d = codecs.particle_alive(pv.status, pv.stamp, vox_axis)
+        _, _, _, proj_ok = project_to_image_xyz(
+            cfg, r_cw, t_cw, pv.px, pv.py, pv.pz
+        )
+        cand_d = proj_ok & alive_d
+        has_alive = jnp.any(alive_d, axis=1)
+        block_mask = mask_to_block_mask(cand_d, bv)
 
         blocks = select_blocks(block_mask, A_loc)
         rv = row_valid(blocks)
@@ -508,12 +498,11 @@ def build_shard_map_step(
         meta = ((btrack << 8) | (bforget & 0xFF)).reshape(-1)
 
         # -- route visible entries to their pixel-row OWNER only --
-        # Round-4 also routed halo copies (an entry near a slab boundary
-        # went to up to 2*n_side neighbors), which tripled the _route input
-        # and duplicated the receiver-side sort/table work — a large share
-        # of the 1.79x per-device FLOP overhead (VERDICT r4).  Round 5
-        # routes each entry once and exchanges the stencil's dense 2R-row
-        # table halo between neighbors instead (_exchange_table_halo).
+        # Routing halo copies too (an entry near a slab boundary going to
+        # up to 2*n_side neighbors) would triple the _route input and
+        # duplicate the receiver-side sort/table work.  Each entry is
+        # routed once, and the stencil's dense 2R-row table halo is
+        # exchanged between neighbors instead (_exchange_table_halo).
         owner = jnp.minimum(row_f // rpd, D - 1)
         fields = {
             "pix": pix, "camz": camz,
@@ -570,8 +559,7 @@ def build_shard_map_step(
         new_w_t, new_f_t = stencil_pass_b_any(cfg, params, table, cloud_ext, ck_kappa)
 
         dest_t = jnp.where(keep_s, jnp.minimum(rank_s, S - 1) * (Hext * W) + pix_loc, 0)
-        # One row-gather for both result planes (see ops/observe.py; two
-        # separate element gathers cost ~2.5x more on v5e).
+        # One row-gather for both result planes (see ops/observe.py).
         res_t = jnp.stack(
             [new_w_t.reshape(-1), new_f_t.reshape(-1).astype(jnp.float32)],
             axis=-1,
@@ -880,18 +868,10 @@ def build_shard_map_step(
             dev, particles, scroll, vox_axis, cloud_ext, gt, k_birth
         )
 
-        if _use_pallas(cfg) and cfg.use_pallas_render:
-            from ..ops.render_pallas import render_core_pallas
-
-            particles, result = render_core_pallas(
-                cfg, particles, voxel_stamp, vox_axis,
-                params.occupancy_threshold,
-            )
-        else:
-            particles, result = render_core_xla(
-                cfg, particles, voxel_stamp, vox_axis,
-                params.occupancy_threshold,
-            )
+        particles, result = render_core_xla(
+            cfg, particles, voxel_stamp, vox_axis,
+            params.occupancy_threshold,
+        )
 
         new_state = state.replace(
             particles=particles,

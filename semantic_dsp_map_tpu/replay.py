@@ -21,6 +21,7 @@ from typing import Optional
 
 import numpy as np
 
+from .compile_cache import enable_compile_cache
 from .config import (
     FilterParams,
     MapConfig,
@@ -100,6 +101,41 @@ def run_replay(
     return summary, result
 
 
+def replay_tiny_params() -> FilterParams:
+    """Filter parameters of the committed data/replay_tiny sequence."""
+    return FilterParams(
+        if_consider_depth_noise=True,
+        nb_ptc_num_per_point=1,
+        depth_noise_model_zero_order=0.2,
+        prediction_stddev=0.0,
+    )
+
+
+def summarize_replay(dsp: SemanticDSPMap, sequence, drop_first: int = 2):
+    """Per-frame occupancy and diagnostics counts of a replay, in the format
+    of data/replay_tiny/EXPECTED.json."""
+    frames = []
+    for i, frame in enumerate(sequence):
+        if i < drop_first:
+            continue
+        result, diag = dsp.update(
+            frame.depth, frame.masks, frame.cam_pos, frame.cam_quat, frame.time
+        )
+        occ = np.asarray(result.occ)
+        frames.append(
+            dict(
+                index=frame.index,
+                occupied=int((occ == 1).sum()),
+                free=int((occ == 0).sum()),
+                unknown=int((occ == -1).sum()),
+                visible=int(np.asarray(diag.visible_count)),
+                born=int(np.asarray(diag.born_count)),
+                moved=int(np.asarray(diag.moved_count)),
+            )
+        )
+    return frames
+
+
 def _write_frame_ply(dsp: SemanticDSPMap, result, frame: Frame, path_prefix: str):
     from .io import write_ply
 
@@ -132,6 +168,7 @@ def main(argv=None):
     ap.add_argument("--max-frames", type=int, default=0)
     ap.add_argument("--drop-first", type=int, default=2)
     args = ap.parse_args(argv)
+    enable_compile_cache()
 
     preset = args.preset or {"kitti360": "kitti360", "vkitti2": "vkitti2", "npz": "vkitti2"}[args.dataset]
     cfg = _PRESETS[preset]()

@@ -1,6 +1,6 @@
 """Map state as a pytree of dense arrays.
 
-This is the TPU-native replacement for the reference's global mutable storage:
+This is the array-program replacement for the reference's global mutable storage:
   - ``PARTICLE_ARRAY`` (buffer.h:86) -> particle SoA arrays of shape [V, K]
     (voxel-major, K = 2^n - 1 real slots; the reference's slot-0 "time
     particle" becomes the separate ``voxel_stamp`` array);
@@ -15,9 +15,10 @@ Everything is functional: the per-frame update maps ``MapState -> MapState``.
 
 from __future__ import annotations
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from .config import MapConfig
 
@@ -30,21 +31,25 @@ STATUS_GUESSED_BORN = 3
 STATUS_COPIED = 4
 
 
-@struct.dataclass
+def pytree_dataclass(cls):
+    """A frozen dataclass registered as a pytree whose fields are all
+    children, with a ``replace(**changes)`` method."""
+    cls = dataclasses.dataclass(frozen=True)(cls)
+    cls.replace = dataclasses.replace
+    return jax.tree_util.register_dataclass(cls)
+
+
+@pytree_dataclass
 class Particles:
     """SoA particle storage, FLAT shape [V*K] (voxel-major, K slots/voxel).
 
-    Flat 1-D buffers get a linear TPU layout; a [V, K] buffer with the tiny
-    K on the minor dimension gets a tiled layout that costs a multi-GB
-    relayout on every reshape/scatter at the jit boundary (measured 33 ms
-    vs 6.7 ms for one row-scatter at VKITTI2 scale, round-3).  Ops reshape
-    to [V, K] views INSIDE jit (a free bitcast from linear) via
-    :func:`particles_vk` and flatten results back with :func:`particles_flat`.
+    Flat 1-D buffers have a linear layout.  Ops reshape to [V, K] views
+    INSIDE jit (a free bitcast from linear) via :func:`particles_vk` and
+    flatten results back with :func:`particles_flat`, so no [V, K] layout
+    with the tiny K minor ever crosses the jit boundary.
 
-    Positions are three SEPARATE arrays: any array that combines the xyz
-    axis with the particle dim tempts layout assignment into putting a tiny
-    axis on the 128-lane dimension (observed: a 672 MB position array copied
-    into a 12 GB padded temp inside a conditional).
+    Positions are three SEPARATE arrays, so no array pairs the tiny xyz
+    axis with the particle dimension.
     """
 
     px: jax.Array       # f32[V*K] global-frame position x
@@ -91,7 +96,7 @@ def particles_flat(p: Particles) -> Particles:
     )
 
 
-@struct.dataclass
+@pytree_dataclass
 class ScrollState:
     """Ego-centric ring-buffer scroll state (buffer.h:97-120).
 
@@ -109,7 +114,7 @@ class ScrollState:
     axis_stamp_z: jax.Array   # i32[Nz]
 
 
-@struct.dataclass
+@pytree_dataclass
 class ObjectTable:
     """Fixed-capacity object layer (replaces object_layer.h:345-648).
 
@@ -150,7 +155,7 @@ class ObjectTable:
     key_kpts_time: jax.Array     # f32[O]
 
 
-@struct.dataclass
+@pytree_dataclass
 class MapState:
     particles: Particles
     voxel_stamp: jax.Array   # i32[V] observation stamp of each voxel

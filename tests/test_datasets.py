@@ -1,6 +1,6 @@
 """Real-format dataset readers exercised on synthesized on-disk sequences.
 
-VERDICT r3 missing #2: Kitti360Sequence / VirtualKitti2Sequence implement
+Kitti360Sequence / VirtualKitti2Sequence implement
 the reference feeders' formats (script/tools/kitti360_data_reader.py:120-157,
 225-244; VKITTI2 official layout) but had never parsed real-format files.
 These tests write tiny sequences in the OFFICIAL layouts — KITTI-360

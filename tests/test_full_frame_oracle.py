@@ -157,7 +157,7 @@ def _zed2_frame(cfg, registry, t):
 
 
 def test_full_frame_matches_oracle_zed2():
-    """ZED2 (bbox3d) mode end-to-end vs the oracle (VERDICT r3 missing #3):
+    """ZED2 (bbox3d) mode end-to-end vs the oracle:
     sky culling, bbox gating, last/key keypoint caches with the 2 s refresh,
     drift-vs-width movement evidence, FOV gate — plus the independent-filter
     PHD variant (semantic_dsp_map.h:1009-1027)."""

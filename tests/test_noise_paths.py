@@ -1,4 +1,4 @@
-"""Statistical end-to-end checks of the stochastic paths (VERDICT r3 #9).
+"""Statistical end-to-end checks of the stochastic paths.
 
 The full-frame oracle deliberately pins the noise paths off
 (oracle_full.py: prediction_stddev=0, nb=1); these tests cover the excluded

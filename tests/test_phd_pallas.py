@@ -1,7 +1,8 @@
 """Pallas PHD stencil kernels vs the XLA stencils (the tested oracle).
 
-Runs the kernels in interpreter mode on the CPU backend at tiny shapes; the
-TPU-compiled path is checked by benchmarks/check_pallas.py on hardware.
+Runs the Triton-route kernels in interpreter mode on the CPU backend at tiny
+shapes; chip_smoke.py compares the compiled kernels with the XLA stencils on
+the GPU at the VKITTI2 and ZED2 shapes.
 """
 
 import jax.numpy as jnp
@@ -9,13 +10,8 @@ import numpy as np
 import pytest
 
 from semantic_dsp_map_tpu.config import FilterParams, tiny_test_config
-from semantic_dsp_map_tpu.ops.phd import (
-    PixelTable,
-    stencil_pass_a,
-    stencil_pass_b,
-)
-from semantic_dsp_map_tpu.ops.phd_pallas import pass_a_pallas, pass_b_pallas
-from semantic_dsp_map_tpu.ops.geometry import forgetting_factor
+from semantic_dsp_map_tpu.ops import phd_pallas
+from semantic_dsp_map_tpu.ops.phd import PixelTable, stencil_pass_a, stencil_pass_b
 from semantic_dsp_map_tpu.ops.projection import LabeledCloud
 
 
@@ -55,11 +51,17 @@ def _inputs(cfg, seed=0, fill=0.4, front_fill=False):
 
 
 @pytest.mark.parametrize(
-    "independent,front_fill,fill",
-    [(False, False, 0.4), (True, False, 0.4), (False, True, 0.12)],
+    "independent,front_fill,fill,R,tile",
+    [
+        (False, False, 0.4, None, (8, 16)),
+        (True, False, 0.4, None, (8, 16)),
+        (False, True, 0.12, None, (8, 16)),
+        # 24x32 image against a 16x64 tile: neither side is a multiple.
+        (False, True, 0.3, 3, (16, 64)),
+    ],
 )
-def test_pallas_stencils_match_xla(independent, front_fill, fill):
-    cfg = tiny_test_config(phd_pixel_table_slots=4)
+def test_pallas_stencils_match_xla(independent, front_fill, fill, R, tile):
+    cfg = tiny_test_config(phd_pixel_table_slots=4, phd_neighbor_half=R)
     params = FilterParams(
         detection_probability=0.9,
         noise_number=0.1,
@@ -71,48 +73,29 @@ def test_pallas_stencils_match_xla(independent, front_fill, fill):
     ck_x = stencil_pass_a(cfg, params, t, cloud)
     nw_x, nf_x = stencil_pass_b(cfg, params, t, cloud, ck_x)
 
-    occupied = t.meta >= 0
-    track_t = t.meta >> 8
-    forget_t = t.meta & 0xFF
-    if independent:
-        weff = jnp.where(occupied, t.weight, 0.0)
-        ff_eff = occupied.astype(jnp.float32)
-    else:
-        ff = forgetting_factor(forget_t, params.forgetting_rate, params.max_forget_count)
-        weff = jnp.where(occupied, t.weight * ff, 0.0)
-        ff_eff = jnp.where(occupied, ff, 0.0)
-    inv_sigma = 1.0 / jnp.maximum(cloud.sigma, 1e-6)
-
-    kw = dict(interpret=True, th=8, tw=32)
-    ck_raw = pass_a_pallas(
-        cfg, params, t.px, t.py, t.pz, weff, track_t,
-        cloud.pos[..., 0], cloud.pos[..., 1], cloud.pos[..., 2],
-        inv_sigma, cloud.track, **kw,
-    )
-    ck_p = (
-        jnp.where(cloud.valid, ck_raw, 0.0) * params.detection_probability
-        + params.noise_number
-    )
+    kw = dict(interpret=True, tile=tile)
+    ck_p = phd_pallas.pass_a(cfg, params, t, cloud, **kw)
     np.testing.assert_allclose(np.asarray(ck_x), np.asarray(ck_p), rtol=2e-5, atol=1e-6)
 
-    trk_eff = jnp.where(occupied, track_t, -2)
-    acc, right_f = pass_b_pallas(
-        cfg, params, t.px, t.py, t.pz, trk_eff, ff_eff, inv_sigma,
-        cloud.pos[..., 0], cloud.pos[..., 1], cloud.pos[..., 2],
-        cloud.valid, cloud.track, ck_p, **kw,
-    )
-    nw_p = t.weight * (
-        acc * params.detection_probability + 1.0 - params.detection_probability
-    )
-    nw_p = jnp.where(occupied, nw_p, t.weight)
+    nw_p, nf_p = phd_pallas.pass_b(cfg, params, t, cloud, ck_p, **kw)
     np.testing.assert_allclose(np.asarray(nw_x), np.asarray(nw_p), rtol=2e-5, atol=1e-7)
+    np.testing.assert_array_equal(np.asarray(nf_x), np.asarray(nf_p))
 
-    if not independent:
-        from semantic_dsp_map_tpu.config import FORGET_COUNT_INCREMENT_CAP
 
-        nf_p = jnp.where(
-            right_f > 0.0,
-            0,
-            jnp.where(forget_t < FORGET_COUNT_INCREMENT_CAP, forget_t + 1, forget_t),
-        )
-        np.testing.assert_array_equal(np.asarray(nf_x), np.asarray(nf_p))
+def test_pallas_tile_must_be_power_of_two():
+    cfg = tiny_test_config(phd_pixel_table_slots=4)
+    t, cloud = _inputs(cfg)
+    with pytest.raises(ValueError, match="powers of two"):
+        phd_pallas.pass_a(cfg, FilterParams(), t, cloud, interpret=True, tile=(12, 16))
+
+
+@pytest.mark.gpu
+def test_compiled_kernels_match_xla_on_gpu():
+    """The compiled (not interpreted) kernels at the VKITTI2 shape."""
+    import jax
+
+    if jax.devices()[0].platform != "gpu":
+        pytest.skip("needs a GPU; chip_smoke.py runs this comparison on the card")
+    import chip_smoke
+
+    chip_smoke.phase_kernels(jax.devices()[0].device_kind)

@@ -9,49 +9,22 @@ Regenerate the artifact after an intentional semantics change with
 
 import json
 import os
-import sys
-
-import numpy as np
-
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools"))
 
 from semantic_dsp_map_tpu import SemanticDSPMap
 from semantic_dsp_map_tpu.config import tiny_test_config
 from semantic_dsp_map_tpu.datasets import NpzSequence
+from semantic_dsp_map_tpu.replay import replay_tiny_params, summarize_replay
 
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "data", "replay_tiny")
 
 
 def test_committed_replay_matches_expected():
-    from make_replay_sequence import replay_params
-
     with open(os.path.join(DATA, "EXPECTED.json")) as f:
         expected = json.load(f)
 
-    cfg = tiny_test_config()
-    dsp = SemanticDSPMap(cfg, replay_params())
+    dsp = SemanticDSPMap(tiny_test_config(), replay_tiny_params())
     seq = NpzSequence(DATA)
     assert len(seq) == expected["n_frames"]
-
-    got = []
-    for i, frame in enumerate(seq):
-        if i < expected["drop_first"]:
-            continue
-        result, diag = dsp.update(
-            frame.depth, frame.masks, frame.cam_pos, frame.cam_quat, frame.time
-        )
-        occ = np.asarray(result.occ)
-        got.append(
-            dict(
-                index=frame.index,
-                occupied=int((occ == 1).sum()),
-                free=int((occ == 0).sum()),
-                unknown=int((occ == -1).sum()),
-                visible=int(np.asarray(diag.visible_count)),
-                born=int(np.asarray(diag.born_count)),
-                moved=int(np.asarray(diag.moved_count)),
-            )
-        )
-
+    got = summarize_replay(dsp, seq, expected["drop_first"])
     assert got == expected["frames"]

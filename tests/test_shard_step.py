@@ -104,7 +104,7 @@ def test_shard_map_step_matches_single_device(packed):
     stepN = build_shard_map_step(cfg, params, registry, mesh, packed=packed)
     sN = shard_state(cfg, mesh, init_map_state(cfg, seed=7))
     if packed:
-        # The one-buffer transfer path (VERDICT r4 #4): same raw scene,
+        # The one-buffer transfer path: same raw scene,
         # packed host-side and decoded device-side inside the shard_map.
         raw = _raw_frames(cfg, 4)
         inputsN = [
@@ -292,3 +292,29 @@ def test_shard_map_step_overflow_counters_fire():
     # births still land despite the pressure
     assert int(np.asarray(dN.born_count)) >= 0
     assert int(np.asarray(dN.visible_count)) > 0
+
+
+def test_shard_caps_default_holds_the_single_chip_volume():
+    """By default a device can take the whole frustum (z-slabs meet a
+    forward camera): single-chip working sets, and each route bucket its
+    source's whole volume.  A float headroom sizes them ~1/D."""
+    from semantic_dsp_map_tpu.config import virtual_kitti2_config
+    from semantic_dsp_map_tpu.parallel.shard_step import shard_caps
+
+    params = FilterParams(if_consider_depth_noise=True, nb_ptc_num_per_point=1)
+    cfg = virtual_kitti2_config()
+    D = 4
+    c = shard_caps(cfg, params, D)
+    rpd = -(-cfg.height // D)
+    assert c["A_loc"] == cfg.max_active_blocks
+    assert c["A_birth"] == cfg.max_birth_blocks
+    assert c["A_move"] == cfg.max_moving_blocks
+    assert c["BCAP"] == rpd * cfg.width
+    assert c["ECAP"] == c["n_work"] and c["MCAP"] == c["n_move"]
+    assert c["C_loc"] == cfg.max_table_entries
+
+    s = shard_caps(virtual_kitti2_config(shard_route_headroom=1.2), params, D)
+    assert s["hroom"] == pytest.approx(1.15)
+    assert s["A_loc"] == int(s["hroom"] * cfg.max_active_blocks) // D
+    assert s["BCAP"] == int(s["hroom"] * rpd * cfg.width) // D
+    assert s["C_loc"] < c["C_loc"]

@@ -2,6 +2,7 @@
 produce sane occupancy."""
 
 import numpy as np
+import pytest
 
 from semantic_dsp_map_tpu import FilterParams, MaskKpts, SemanticDSPMap
 from semantic_dsp_map_tpu.config import tiny_test_config
@@ -59,3 +60,34 @@ def test_smoke_freespace_and_unknown():
     behind = vp[:, 2] < -0.5
     assert (occ[behind] == -1).all(), "voxels behind the camera stay unknown"
     assert (occ == 0).sum() > 0, "free voxels in front of the wall"
+
+
+def test_map_state_pytree_round_trip_under_jit():
+    """MapState and its parts are registered dataclasses: they flatten and
+    rebuild as pytrees, and ``.replace`` works inside jit."""
+    import jax
+    import jax.numpy as jnp
+
+    from semantic_dsp_map_tpu.config import tiny_test_config
+    from semantic_dsp_map_tpu.state import MapState, init_map_state
+
+    state = init_map_state(tiny_test_config(), seed=3)
+    leaves, treedef = jax.tree_util.tree_flatten(state)
+    rebuilt = jax.tree_util.tree_unflatten(treedef, leaves)
+    assert isinstance(rebuilt, MapState)
+
+    @jax.jit
+    def bump(s):
+        return s.replace(
+            global_time=s.global_time + 1,
+            scroll=s.scroll.replace(ego_pos=s.scroll.ego_pos + 2.0),
+            particles=s.particles.replace(weight=s.particles.weight + 0.5),
+        )
+
+    out = bump(rebuilt)
+    assert int(out.global_time) == 1
+    np.testing.assert_array_equal(np.asarray(out.scroll.ego_pos), [2.0, 2.0, 2.0])
+    assert float(jnp.min(out.particles.weight)) == 0.5
+    assert jax.tree_util.tree_structure(out) == treedef
+    with pytest.raises(Exception):
+        state.global_time = jnp.int32(5)  # frozen

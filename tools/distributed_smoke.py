@@ -1,4 +1,4 @@
-"""Two-process distributed smoke test (VERDICT r3 next-step #8).
+"""Two-process distributed smoke test.
 
 Exercises the multi-controller code path that the single-process virtual
 mesh cannot: 2 OS processes x 4 virtual CPU devices each, brought up with
@@ -10,7 +10,7 @@ process boundary for half its peers — the DCN analog on this host.
 Run:  python tools/distributed_smoke.py            (spawns both workers)
       python tools/distributed_smoke.py --worker I (one worker, internal)
 
-Writes DISTRIBUTED_SMOKE.json with both workers' per-frame diagnostics.
+Writes DISTRIBUTED_SMOKE.json (git-ignored) with both workers' per-frame diagnostics.
 """
 
 import argparse

@@ -23,10 +23,10 @@ import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 
-from semantic_dsp_map_tpu import FilterParams, MaskKpts, SemanticDSPMap  # noqa: E402
+from semantic_dsp_map_tpu import MaskKpts, SemanticDSPMap  # noqa: E402
 from semantic_dsp_map_tpu.config import tiny_test_config  # noqa: E402
 from semantic_dsp_map_tpu.datasets import Frame, NpzSequence, save_npz_frame  # noqa: E402
-from semantic_dsp_map_tpu.replay import run_replay  # noqa: E402
+from semantic_dsp_map_tpu.replay import replay_tiny_params, summarize_replay  # noqa: E402
 
 OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                    "data", "replay_tiny")
@@ -67,15 +67,6 @@ def make_frame(cfg, t: int) -> Frame:
     )
 
 
-def replay_params() -> FilterParams:
-    return FilterParams(
-        if_consider_depth_noise=True,
-        nb_ptc_num_per_point=1,
-        depth_noise_model_zero_order=0.2,
-        prediction_stddev=0.0,
-    )
-
-
 def main():
     cfg = tiny_test_config()
     os.makedirs(OUT, exist_ok=True)
@@ -83,26 +74,8 @@ def main():
         save_npz_frame(OUT, t, make_frame(cfg, t))
 
     # replay it and record the expected per-frame summary
-    dsp = SemanticDSPMap(cfg, replay_params())
-    frames = []
-    for i, frame in enumerate(NpzSequence(OUT)):
-        if i < 2:
-            continue
-        result, diag = dsp.update(
-            frame.depth, frame.masks, frame.cam_pos, frame.cam_quat, frame.time
-        )
-        occ = np.asarray(result.occ)
-        frames.append(
-            dict(
-                index=frame.index,
-                occupied=int((occ == 1).sum()),
-                free=int((occ == 0).sum()),
-                unknown=int((occ == -1).sum()),
-                visible=int(np.asarray(diag.visible_count)),
-                born=int(np.asarray(diag.born_count)),
-                moved=int(np.asarray(diag.moved_count)),
-            )
-        )
+    dsp = SemanticDSPMap(cfg, replay_tiny_params())
+    frames = summarize_replay(dsp, NpzSequence(OUT), drop_first=2)
     expected = dict(n_frames=N_FRAMES, drop_first=2, frames=frames)
     with open(os.path.join(OUT, "EXPECTED.json"), "w") as f:
         json.dump(expected, f, indent=1)

@@ -8,7 +8,7 @@ checkpoints mid-way, restores, and verifies:
     voxels track the ego;
   - checkpoint/resume reproduces the same occupancy after restore.
 
-Writes SOAK_KITTI360.json at the repo root.  Run on the TPU host:
+Writes SOAK_KITTI360.json at the repo root.  Run on the GPU host:
     python tools/soak_kitti360.py [--frames 300]
 """
 
